@@ -1,0 +1,60 @@
+"""Shared subprogram driver plumbing.
+
+The reference repeats its run-loop/checkpoint/restart boilerplate in every
+subprogram (by design — subprog_boilerplate.cpp is the template). Here the
+common parts are factored once:
+
+- restart precedence: template defaults <- checkpoint run_config <- CLI args
+  (reference subprog_binary.cpp:155-164)
+- numbered checkpoint paths and schedules
+
+h5py is imported only by the functions that open a file, so a run that
+writes no checkpoint needs no h5py.
+"""
+
+from __future__ import annotations
+
+import os
+
+from mara3_tpu_torch.app import serialize
+from mara3_tpu_torch.app.config import Config, ConfigTemplate, argv_to_string_map
+from mara3_tpu_torch.app.schedule import Schedule
+
+
+def create_run_config(template: ConfigTemplate, argv) -> Config:
+    """argv -> config with checkpoint-restart merge semantics."""
+    args = argv_to_string_map(argv)
+    cfg = template.create()
+    if "restart" in args and args["restart"]:
+        import h5py
+        with h5py.File(args["restart"], "r") as f:
+            # our checkpoints use 'run_config'; reference-generated sedov/
+            # cloud checkpoints use 'config' (subprog_sedov.cpp:487)
+            group = f["run_config"] if "run_config" in f else f["config"]
+            stored = serialize.read_config(group)
+            # ignore keys the template doesn't declare (forward/backward
+            # compatibility with reference-generated files)
+            stored = {k: v for k, v in stored.items() if k in cfg}
+            cfg = cfg.update(stored)
+    return cfg.update(args)
+
+
+def create_schedule(run_config: Config, task_names) -> Schedule:
+    """Fresh schedule with every task initially due, or the checkpoint's."""
+    restart = run_config.get_string("restart") if "restart" in run_config else ""
+    if restart:
+        import h5py
+        with h5py.File(restart, "r") as f:
+            return serialize.read_schedule(f["schedule"])
+    s = Schedule.create(*task_names)
+    for name in task_names:
+        s = s.mark_as_due(name)
+    return s
+
+
+def checkpoint_path(run_config: Config, count: int, prefix: str = "chkpt") -> str:
+    outdir = (run_config.get_string("outdir")
+              if "outdir" in run_config else ".")
+    if outdir and outdir != ".":
+        os.makedirs(outdir, exist_ok=True)
+    return serialize.create_numbered_filename(prefix, count, "h5", outdir)

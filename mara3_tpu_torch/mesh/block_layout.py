@@ -1,0 +1,218 @@
+"""Dense device layout for the static quadtree: neighbor tables and the
+guard exchange as one indexed gather.
+
+Port of mara3_tpu/mesh/block_layout.py. The reference's recursive per-leaf
+guard fetch (mara::get_cell_block, mesh_tree_operators.hpp:223-252:
+same-level leaf, or prolong from parent, or combine+coarsen children)
+becomes host-built static tables and one gather over a
+[num_blocks, bs, bs, ncomp] tensor.
+
+A 2:1-balanced tree guarantees each face sees exactly one of three cases:
+  0 = same-level neighbor        (copy its edge strip)
+  1 = coarser neighbor           (prolong the matching half of its edge)
+  2 = two finer neighbors        (restrict their edges 2x2)
+Faces are numbered 0: x-lower, 1: x-upper, 2: y-lower, 3: y-upper.
+
+The tables are host-side numpy, as in the JAX package; the gather runs in
+torch on whatever device the data lives on.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from mara3_tpu_torch.mesh import tree as treemod
+from mara3_tpu_torch.mesh.tree import TreeIndex
+
+
+@dataclass(frozen=True)
+class NeighborTable:
+    """Static per-block, per-face neighbor relations (int32 arrays)."""
+    case: np.ndarray       # [B, 4] in {0 same, 1 coarse, 2 fine}
+    same_id: np.ndarray    # [B, 4]
+    coarse_id: np.ndarray  # [B, 4]
+    coarse_half: np.ndarray  # [B, 4] which half of the coarse edge (0 lower)
+    fine_id: np.ndarray    # [B, 4, 2] ordered by the perpendicular coordinate
+
+
+def build_neighbor_table(leaves: Sequence[TreeIndex]) -> NeighborTable:
+    """Per-face neighbor relations of a 2:1-balanced leaf set."""
+    leaves = list(leaves)
+    index_of = {leaf: b for b, leaf in enumerate(leaves)}
+    leaf_set = set(leaves)
+    B = len(leaves)
+    case = np.zeros((B, 4), np.int32)
+    same_id = np.zeros((B, 4), np.int32)
+    coarse_id = np.zeros((B, 4), np.int32)
+    coarse_half = np.zeros((B, 4), np.int32)
+    fine_id = np.zeros((B, 4, 2), np.int32)
+
+    for b, leaf in enumerate(leaves):
+        level, i, j = leaf
+        for axis in (0, 1):
+            for side in (0, 1):
+                f = 2 * axis + side
+                n = treemod.neighbor(leaf, axis, side)
+                if n in leaf_set:
+                    case[b, f] = 0
+                    same_id[b, f] = index_of[n]
+                elif level > 0 and treemod.parent(n) in leaf_set:
+                    case[b, f] = 1
+                    coarse_id[b, f] = index_of[treemod.parent(n)]
+                    coarse_half[b, f] = (j & 1) if axis == 0 else (i & 1)
+                else:
+                    kids = treemod.children(n)
+                    # children of n adjacent to my face, ordered by the
+                    # perpendicular coordinate (child k at x-half k&1,
+                    # y-half k>>1)
+                    if axis == 0:
+                        ks = (1, 3) if side == 0 else (0, 2)
+                    else:
+                        ks = (2, 3) if side == 0 else (0, 1)
+                    try:
+                        case[b, f] = 2
+                        fine_id[b, f, 0] = index_of[kids[ks[0]]]
+                        fine_id[b, f, 1] = index_of[kids[ks[1]]]
+                    except KeyError as e:
+                        raise ValueError(
+                            f"tree is not 2:1 balanced at {leaf} face {f}"
+                        ) from e
+    return NeighborTable(case, same_id, coarse_id, coarse_half, fine_id)
+
+
+def pack_neighbor_table(nt: NeighborTable) -> np.ndarray:
+    """[B, 4, 6] int32 rows (case, same, coarse, coarse_half, fine0, fine1)
+    per face: the one table a kernel reads to find its neighbors."""
+    return np.stack([nt.case, nt.same_id, nt.coarse_id, nt.coarse_half,
+                     nt.fine_id[:, :, 0], nt.fine_id[:, :, 1]],
+                    axis=2).astype(np.int32)
+
+
+def block_vertices(leaves: Sequence[TreeIndex], bs: int,
+                   dtype=np.float64) -> np.ndarray:
+    """[B, bs+1, bs+1, 2] vertex coordinates on the [-1,1]^2 root domain."""
+    out = np.zeros((len(leaves), bs + 1, bs + 1, 2), dtype)
+    for b, leaf in enumerate(leaves):
+        x0, y0, w = treemod.block_extent(leaf)
+        xv = x0 + w * np.arange(bs + 1) / bs
+        yv = y0 + w * np.arange(bs + 1) / bs
+        out[b, :, :, 0] = xv[:, None]
+        out[b, :, :, 1] = yv[None, :]
+    return out
+
+
+def block_cell_centers(leaves: Sequence[TreeIndex], bs: int,
+                       dtype=np.float64) -> np.ndarray:
+    v = block_vertices(leaves, bs, dtype)
+    return 0.25 * (v[:, :-1, :-1] + v[:, 1:, :-1] + v[:, :-1, 1:]
+                   + v[:, 1:, 1:])
+
+
+def block_dx(leaves: Sequence[TreeIndex], bs: int,
+             dtype=np.float64) -> np.ndarray:
+    """[B] cell size per block (square cells)."""
+    return np.array([treemod.block_extent(leaf)[2] / bs for leaf in leaves],
+                    dtype)
+
+
+# -----------------------------------------------------------------------------
+# guard exchange: one gather + weighted sum
+#
+# Every one-cell guard is a linear combination of at most 4 source cells
+# (1 for the same and coarse cases, the 2x2 average for the fine case), so
+# the whole exchange is one precomputed gather.
+# -----------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GuardGather:
+    """indices [B, 4, bs, 4] flat into U.reshape(B*bs*bs, C);
+    weights [B, 4, bs, 4]. Guard width 1 (the workloads' width). Built as
+    numpy on the host; `to` gives the tensor copy the hot path reads."""
+    indices: object
+    weights: object
+    bs: int
+
+    def to(self, device, dtype) -> "GuardGather":
+        return GuardGather(
+            torch.as_tensor(self.indices, dtype=torch.int64, device=device),
+            torch.as_tensor(self.weights, dtype=dtype, device=device),
+            self.bs)
+
+
+def build_guard_gather(nt: NeighborTable, bs: int) -> GuardGather:
+    B = nt.case.shape[0]
+    idx = np.zeros((B, 4, bs, 4), np.int32)
+    wts = np.zeros((B, 4, bs, 4), np.float64)
+
+    def flat(b, i, j):
+        return (b * bs + i) * bs + j
+
+    for b in range(B):
+        for axis in (0, 1):
+            for side in (0, 1):
+                f = 2 * axis + side
+                edge = bs - 1 if side == 0 else 0   # neighbor's facing edge
+                for p in range(bs):                  # position along face
+                    if nt.case[b, f] == 0:
+                        nb = nt.same_id[b, f]
+                        src = ((nb, edge, p) if axis == 0
+                               else (nb, p, edge))
+                        idx[b, f, p, 0] = flat(*src)
+                        wts[b, f, p, 0] = 1.0
+                    elif nt.case[b, f] == 1:
+                        nb = nt.coarse_id[b, f]
+                        q = nt.coarse_half[b, f] * (bs // 2) + p // 2
+                        src = ((nb, edge, q) if axis == 0
+                               else (nb, q, edge))
+                        idx[b, f, p, 0] = flat(*src)
+                        wts[b, f, p, 0] = 1.0
+                    else:
+                        nb = nt.fine_id[b, f, 0 if p < bs // 2 else 1]
+                        q = (2 * p) % bs
+                        e2 = (bs - 2, bs - 1) if side == 0 else (1, 0)
+                        # 2x2 average of the fine neighbor's edge cells
+                        cells = ([(nb, e2[0], q), (nb, e2[0], q + 1),
+                                  (nb, e2[1], q), (nb, e2[1], q + 1)]
+                                 if axis == 0 else
+                                 [(nb, q, e2[0]), (nb, q + 1, e2[0]),
+                                  (nb, q, e2[1]), (nb, q + 1, e2[1])])
+                        for m, src in enumerate(cells):
+                            idx[b, f, p, m] = flat(*src)
+                            wts[b, f, p, m] = 0.25
+    return GuardGather(idx, wts, bs)
+
+
+def guard_strips(U, gg: GuardGather):
+    """The four one-cell guard strips [B, 4, bs, C] of blocks U
+    [B, bs, bs, C] (faces x-lo, x-hi, y-lo, y-hi): one gather and a
+    weighted sum over the four source slots, taken in slot order."""
+    B, bs = U.shape[0], gg.bs
+    C = U.shape[-1]
+    flat = U.reshape(B * bs * bs, C)
+    ii = torch.as_tensor(gg.indices, dtype=torch.int64, device=U.device)
+    ww = torch.as_tensor(gg.weights, dtype=U.dtype, device=U.device)
+    vals = flat[ii]                                      # [B, 4, bs, 4, C]
+    w = ww[..., None]
+    return (w[:, :, :, 0] * vals[:, :, :, 0] + w[:, :, :, 1] * vals[:, :, :, 1]
+            + w[:, :, :, 2] * vals[:, :, :, 2]
+            + w[:, :, :, 3] * vals[:, :, :, 3])
+
+
+def extend_blocks_fast(U, gg: GuardGather, axis: int, strips=None):
+    """All blocks extended by one guard cell on both sides of `axis`
+    (the reference's per-leaf extend, subprog_binary_scheme.cpp:132-142).
+    `strips` optionally supplies guard_strips(U, gg) already computed."""
+    B, bs = U.shape[0], gg.bs
+    C = U.shape[-1]
+    if strips is None:
+        strips = guard_strips(U, gg)
+    lo, hi = strips[:, 2 * axis], strips[:, 2 * axis + 1]   # [B, bs, C]
+    if axis == 0:
+        return torch.cat([lo.reshape(B, 1, bs, C), U,
+                          hi.reshape(B, 1, bs, C)], dim=1)
+    return torch.cat([lo.reshape(B, bs, 1, C), U,
+                      hi.reshape(B, bs, 1, C)], dim=2)
