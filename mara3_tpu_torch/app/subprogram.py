@@ -8,6 +8,7 @@ time. Usage: ``python -m mara3_tpu_torch <subprogram> [key=val ...]``.
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import Callable, Dict
 
@@ -18,7 +19,8 @@ _SUBPROGRAMS = ("binary",)
 
 
 def register(name: str):
-    """Decorator registering fn(argv) -> int as a subprogram."""
+    """Decorator registering fn(argv, *, device=None) -> int as a
+    subprogram."""
     def wrap(fn):
         _REGISTRY[name] = fn
         return fn
@@ -48,6 +50,10 @@ def main(argv=None) -> int:
         return 0
 
     from mara3_tpu_torch.app.performance import time_execution
-    result, perf = time_execution(_REGISTRY[argv[1]], argv[1:])
+    # the one place the command line's device selector is read: "cpu" asks
+    # for the plain PyTorch versions on the CPU; unset, the run needs a GPU
+    device = os.environ.get("MARA3_TPU_TORCH_DEVICE") or None
+    result, perf = time_execution(_REGISTRY[argv[1]], argv[1:],
+                                  device=device)
     print(f"total execution time: {perf.execution_time_ms / 1e3:.8f}s")
     return int(result or 0)

@@ -155,6 +155,10 @@ def advance_plain(t: AdvanceTables, u0, bodies, dt, plm_theta):
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
+# the totals the kernels sum (csrc/binary_advance_core.cuh, kTotals): the
+# eight per-body totals of PAIR_TOTALS, mass_ejected,
+# angular_momentum_ejected, the fault count
+NUM_TOTALS = 19
 
 
 def _library():
@@ -162,9 +166,17 @@ def _library():
     from mara3_tpu_torch.kernels import _build
     lib = _build.load("binary_advance")
     if not getattr(lib, "_mara_typed", False):
+        if lib.b2_num_totals() != NUM_TOTALS:
+            raise RuntimeError("csrc/binary_advance.cu sums "
+                               f"{lib.b2_num_totals()} totals, not "
+                               f"{NUM_TOTALS}")
         for fn in (lib.b2_advance_f32, lib.b2_advance_f64):
             fn.argtypes = [_c_void_p] * 14 + [_c_int, _c_int, _c_void_p,
                                               _c_int, _c_void_p]
+            fn.restype = _c_int
+        for fn in (lib.b2_advance_dev_f32, lib.b2_advance_dev_f64):
+            fn.argtypes = [_c_void_p] * 14 + [_c_int, _c_int, _c_void_p,
+                                              _c_int, _c_void_p, _c_void_p]
             fn.restype = _c_int
         lib.b2_num_partials.argtypes = [_c_int, _c_int]
         lib.b2_num_partials.restype = _c_int
@@ -192,25 +204,40 @@ def kernel_params(cfg: SchemeConfig, bodies, dt, theta):
     return params, flags
 
 
-def _check(t: AdvanceTables, u0):
+def _check(t: AdvanceTables, u0, name="advance_cuda"):
+    """Raise unless u0 is what the kernels take: a contiguous CUDA tensor
+    [B, bs, bs, 3] of the tables' dtype, on the tables' device."""
     B, bs = t.xc.shape[0], t.xc.shape[1]
     if not u0.is_cuda:
-        raise ValueError("advance_cuda takes a CUDA tensor")
+        raise ValueError(f"{name} takes a CUDA tensor")
     if u0.dtype not in (torch.float32, torch.float64) or u0.dtype != t.dtype:
-        raise TypeError(f"advance_cuda takes the tables' dtype {t.dtype} "
+        raise TypeError(f"{name} takes the tables' dtype {t.dtype} "
                         f"(float32 or float64), got {u0.dtype}")
     if tuple(u0.shape) != (B, bs, bs, 3):
-        raise ValueError(f"advance_cuda takes [{B}, {bs}, {bs}, 3], "
+        raise ValueError(f"{name} takes [{B}, {bs}, {bs}, 3], "
                          f"got {list(u0.shape)}")
     if not u0.is_contiguous():
-        raise ValueError("advance_cuda takes a contiguous tensor")
+        raise ValueError(f"{name} takes a contiguous tensor")
     if u0.device != t.tab.device:
         raise ValueError(f"state on {u0.device}, tables on {t.tab.device}")
 
 
+def device_params(dt, theta, bodies, device):
+    """dt, theta and the bodies as the kernels' float64 device buffer
+    (kDynamic doubles), built on the device with no host read."""
+    dyn = torch.empty(12, dtype=torch.float64, device=device)
+    dyn[0] = dt
+    dyn[1] = theta
+    dyn[2:] = torch.as_tensor(bodies, device=device).reshape(10)
+    return dyn
+
+
 def advance_cuda(t: AdvanceTables, u0, bodies, dt, plm_theta):
     """Kernel B2 on a CUDA tensor: (u1, totals, invalid), with the same
-    meaning as advance_plain. Raises if the kernel does not build or its
+    meaning as advance_plain. Host numbers for dt and the bodies go to the
+    kernels through the launch; when either is a tensor, the kernels read
+    dt, theta and the bodies from a device buffer instead, so the host
+    never waits for them. Raises if the kernel does not build or its
     launch fails."""
     _check(t, u0)
     cfg = t.cfg
@@ -219,7 +246,12 @@ def advance_cuda(t: AdvanceTables, u0, bodies, dt, plm_theta):
     p0 = recover(t, u0).contiguous()
     pg = block_layout.guard_strips(p0, t.gg).contiguous()
     theta = float(plm_theta) if cfg.reconstruct_method == "plm" else 0.0
-    params, flags = kernel_params(cfg, bodies, dt, theta)
+    on_device = torch.is_tensor(bodies) or torch.is_tensor(dt)
+    if on_device:
+        params, flags = kernel_params(cfg, np.zeros((2, 5)), 0.0, theta)
+        dyn = device_params(dt, theta, bodies, u0.device)
+    else:
+        params, flags = kernel_params(cfg, bodies, dt, theta)
 
     empty = lambda *shape, dtype=t.dtype: torch.empty(shape, dtype=dtype,
                                                       device=u0.device)
@@ -227,17 +259,23 @@ def advance_cuda(t: AdvanceTables, u0, bodies, dt, plm_theta):
     fx = empty(B, bs + 1, bs, 3)
     fy = empty(B, bs, bs + 1, 3)
     u1 = empty(B, bs, bs, 3)
-    partials = empty(lib.b2_num_partials(B, bs), lib.b2_num_totals(),
+    partials = empty(lib.b2_num_partials(B, bs), NUM_TOTALS,
                      dtype=torch.float64)
-    totals = empty(lib.b2_num_totals(), dtype=torch.float64)
-    fn = lib.b2_advance_f32 if t.dtype == torch.float32 else lib.b2_advance_f64
+    totals = empty(NUM_TOTALS, dtype=torch.float64)
+    f32 = t.dtype == torch.float32
     stream = torch.cuda.current_stream(u0.device).cuda_stream
-    rc = fn(u0.data_ptr(), p0.data_ptr(), pg.data_ptr(),
+    args = (u0.data_ptr(), p0.data_ptr(), pg.data_ptr(),
             t.initial_conserved.data_ptr(), t.buffer_rate.data_ptr(),
             t.tab.data_ptr(), t.axes.data_ptr(), t.spacing64.data_ptr(),
             g.data_ptr(), fx.data_ptr(), fy.data_ptr(), u1.data_ptr(),
             partials.data_ptr(), totals.data_ptr(), B, bs,
-            params.ctypes.data, flags, stream)
+            params.ctypes.data, flags)
+    if on_device:
+        fn = lib.b2_advance_dev_f32 if f32 else lib.b2_advance_dev_f64
+        rc = fn(*args, dyn.data_ptr(), stream)
+    else:
+        fn = lib.b2_advance_f32 if f32 else lib.b2_advance_f64
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError("binary_advance kernel launch failed: "
                            + lib.b2_error_string(rc).decode())

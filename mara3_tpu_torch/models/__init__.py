@@ -1,1 +1,2 @@
-"""Physical models driving the subprograms (host-side)."""
+"""Physical models driving the subprograms: two_body on the host,
+two_body_device on tensors of the run's device."""

@@ -344,19 +344,20 @@ def work_done(totals, bodies):
     """Accretion work on each body from the accounting totals
     (subprog_binary_scheme.cpp:394-409). A difference of nearly equal
     squares: the rounding of the two square sums decides its last digits,
-    so they are rounded as the JAX package's compiled code rounds them."""
+    so they are rounded as the JAX package's compiled code rounds them.
+    Batched over leading axes: bodies [..., 2, 5], totals [..., 2]."""
     ws = []
     for k in range(2):
-        M0 = bodies[k, 0]
-        px0, py0 = M0 * bodies[k, 3], M0 * bodies[k, 4]
-        dM = totals["mass_accreted_on"][k]
-        dpx = totals["momentum_x_accreted_on"][k]
-        dpy = totals["momentum_y_accreted_on"][k]
+        M0 = bodies[..., k, 0]
+        px0, py0 = M0 * bodies[..., k, 3], M0 * bodies[..., k, 4]
+        dM = totals["mass_accreted_on"][..., k]
+        dpx = totals["momentum_x_accreted_on"][..., k]
+        dpy = totals["momentum_y_accreted_on"][..., k]
         M1 = M0 + dM
         px1, py1 = px0 + dpx, py0 + dpy
         ws.append(0.5 * (_square_sum(px1, py1) / M1
                          - _square_sum(px0, py0) / M0))
-    return torch.stack(ws)
+    return torch.stack(ws, dim=-1)
 
 
 # -----------------------------------------------------------------------------
@@ -395,15 +396,22 @@ def make_maximum_timestep(cfg: SchemeConfig, geometry, *, device, dtype):
     xc, dA, spacing, xf, yf = (torch.as_tensor(a, dtype=dtype, device=device)
                                for a in geometry)
 
-    def maximum_timestep(u0, bodies):
-        bodies = torch.as_tensor(bodies, dtype=dtype, device=device)
-        if cfg.conserve_linear_p:
-            p0 = iso2d.recover_primitive(u0)
-        else:
-            p0 = iso2d.recover_primitive_angmom(u0, xc)
-        cs2 = cs2_at_position(xc, bodies, cfg)
-        a = iso2d.max_wavespeed(p0, cs2)
-        block_dt = spacing / torch.amax(a, dim=(1, 2))
-        return torch.min(block_dt)
+    def bound(u0, bodies):
+        return maximum_timestep(cfg, xc, spacing, u0, bodies)
 
-    return maximum_timestep
+    return bound
+
+
+def maximum_timestep(cfg: SchemeConfig, xc, spacing, u0, bodies):
+    """min over blocks of spacing / max wavespeed, a 0-d tensor; xc
+    [B, bs, bs, 2] and spacing [B] are tensors beside u0, bodies a [2, 5]
+    host array or tensor."""
+    bodies = torch.as_tensor(bodies, dtype=u0.dtype, device=u0.device)
+    if cfg.conserve_linear_p:
+        p0 = iso2d.recover_primitive(u0)
+    else:
+        p0 = iso2d.recover_primitive_angmom(u0, xc)
+    cs2 = cs2_at_position(xc, bodies, cfg)
+    a = iso2d.max_wavespeed(p0, cs2)
+    block_dt = spacing / torch.amax(a, dim=(1, 2))
+    return torch.min(block_dt)

@@ -143,7 +143,7 @@ def test_jax_checkpoint_restarts_in_port(tmp_path, over):
     and solution, and its next step is the JAX package's next step."""
     path, jsd, jsol = jax_checkpoint(tmp_path, over)
     cfg = TB.resolve_options(TB.driver.create_run_config(
-        TB.create_config_template(), ["binary", f"restart={path}"]))
+        TB.create_config_template(), ["binary", f"restart={path}"]), "cpu")
     assert cfg.get_int("conserve_linear_p") == over.get(
         "conserve_linear_p", 1)
     tsd = TB.create_solver_data(cfg, device="cpu", dtype=torch.float64)
@@ -174,7 +174,10 @@ def test_port_checkpoint_restarts_in_jax(tmp_path):
 
 
 def run_port(*args, cwd):
+    """The port's command line on the CPU, which its device selector asks
+    for (without it, and without a card, the run refuses to start)."""
     env = dict(os.environ, PYTHONPATH=REPO)
+    env[TB.DEVICE_SELECTOR] = "cpu"
     return subprocess.run([sys.executable, "-m", "mara3_tpu_torch", *args],
                           cwd=cwd, env=env, capture_output=True, text=True,
                           timeout=300)
@@ -204,20 +207,31 @@ def test_cli_lists_subprograms(tmp_path):
     assert proc.returncode == 0 and "binary" in proc.stdout
 
 
-@pytest.mark.parametrize("option", ["fast_step=1", "multi_launch=4",
-                                    "regrid=1"])
+@pytest.mark.parametrize("option", ["regrid=1"])
 def test_unported_options_raise(option):
     """Options whose code paths are not ported yet raise, naming the
     ROADMAP item; they are never ignored."""
     cfg = TB.driver.create_run_config(TB.create_config_template(),
                                       ["binary", option])
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        TB.resolve_options(cfg)
+        TB.resolve_options(cfg, "cpu")
+
+
+@pytest.mark.parametrize("option,key,value", [
+    ("fast_step=1", "fast_step", 1), ("multi_launch=4", "multi_launch", 4)])
+def test_ported_options_resolve(option, key, value):
+    """fast_step=1 and multi_launch=4, which slice 1 refused, now resolve
+    to themselves and run (tests/test_torch_binary_step.py and
+    test_torch_binary_multi.py hold their paths to the JAX package)."""
+    cfg = TB.driver.create_run_config(TB.create_config_template(),
+                                      ["binary", option])
+    assert TB.resolve_options(cfg, "cpu").get_int(key) == value
 
 
 def test_no_jax_in_the_port():
-    """Importing the port and running a step loads neither jax nor the JAX
-    package, and no source file of the port imports them."""
+    """Importing the port and running a step, the per-step scan and the
+    multi-step scan (kernel B3's plain version) loads neither jax nor the
+    JAX package, and no source file of the port imports them."""
     code = (
         "import sys, torch\n"
         "from mara3_tpu_torch.subprograms import binary as B\n"
@@ -227,6 +241,11 @@ def test_no_jax_in_the_port():
         "{'depth': 2, 'block_size': 8})\n"
         "sd = B.create_solver_data(cfg, device='cpu')\n"
         "B.next_solution(B.create_solution(cfg, sd), sd)\n"
+        "from mara3_tpu_torch.schemes import binary_step as S\n"
+        "s = S.solution_to_arrays(B.create_solution(cfg, sd))\n"
+        "s, rows = S.make_fast_scan(sd)(s, 2)\n"
+        "s, rows = S.make_multi_scan(sd, k_chunk=2)(s, 2)\n"
+        "assert rows.shape == (2, S.INFO_WIDTH)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mara3_tpu' or m.startswith('mara3_tpu.')]\n"
         "assert not bad, bad\n"
