@@ -39,11 +39,28 @@ exits non-zero and prints no result):
 10. timing at d6b96 float32, in turns on the card (plain, kernel, kernel,
    plain): one B3 launch of 16 RK2 steps, 16 steps of the per-step scan
    (B2), and advance_k_plain over 16 steps;
+11. B1 parity: kernel B1 (csrc/iso2d_step.cu) against advance_n_plain on
+   the card over {hlle, hllc} x {rk1, rk2} x {float64, float32}, at
+   96 x 160 (a shape no TPU alignment rule allows) for n in {1, 3, 16} and
+   at 2048^2 for 16 steps; float64 at the CPU bars, float32 at 64 ulps of
+   each cell's largest component;
+12. kh card against CPU: ``kh N=256``, float64, 11 steps, B1 on the card
+   against its plain version on the CPU;
+13. kh main path: ``kh N=2048`` with the defaults (rk1, hlle, float32)
+   through kh.setup() and kh.run() for about 2,000 steps, then ``kh N=2048
+   rk_order=2 riemann=hllc`` for 600, every B1 call counted (one per
+   chunk); prints the whole-run rate (steps x zones / wall seconds);
+14. bench-shaped rate: bench.py's setup (copied here: bench.py imports
+   JAX) through B1, the marginal rate between 56 and 4,056 steps, median of
+   5 pairs timed with CUDA events, in zone-updates per second;
+15. timing at 2048^2 float32, in turns: B1 and advance_n_plain per step and
+   per 16-step call, beside the bound;
 
 then prints one JSON line describing the kernels and, last, the ok line.
 ``--profile PATH`` also writes torch.profiler tables of a d6b96 B2 advance,
-a reference-loop step, a B3 launch and a 64-step chunk of the fast loop to
-PATH, with the device's busy share of the step and of the chunk.
+a reference-loop step, a B3 launch, a 64-step chunk of the fast loop and a
+64-step kh chunk at 2048^2 to PATH, with the device's busy share of the
+step and of the chunks.
 """
 
 from __future__ import annotations
@@ -94,6 +111,9 @@ SCAN_STEPS = 3
 # fixed count of Newton updates
 FAST_U = dict(rtol=1e-9, atol=1e-12)
 FAST_TOTALS = dict(rtol=1e-7, atol=1e-15)
+# kernel B1 in float64: the bar of the CPU test of its plain version against
+# the JAX B1 (tests/test_torch_kh.py)
+B1_F64 = dict(rtol=1e-13, atol=1e-13)
 
 # The least time the card could take (H100 SXM at 700 W): the bytes over
 # 3.35 TB/s or the operations over the float32 rate, whichever is longer.
@@ -123,6 +143,35 @@ VALUES_PER_CELL = 10
 OPS_CELL_STAGE = 2 + 108 + 130
 OPS_FACE_STAGE = 113
 OPS_CELL_RK2_STEP = 25 + 9
+# Kernel B1 (csrc/iso2d_step.cu), counted the same way per cell and stage,
+# as the function needs them (each half-slope once per cell and axis; the
+# kernel computes them twice, and its halo cells again):
+#   recovery            2 (two divides)
+#   half-slopes        66 (3 variables x 2 axes x 11: 3 subtracts, 3
+#                          multiplies, 3 abs, 2 min)
+#   face states        12 per cell (6 per face, one x- and one y-face a cell)
+#   HLLE               96 (48 per face: wave speeds 8, momenta and pressures
+#                          6, physical fluxes 8, 1 / (ap - am) 2, fluxes 24)
+#   HLLC              114 (57 per face: pressures 2, ppvrs 8, pstar 1, ql and
+#                          qr 6, sl, sr 4, kl, kr 4, sstar 7, momenta 4,
+#                          physical fluxes 8, at most one star state and
+#                          flux 13)
+#   update             18 (per component 2 differences, 2 multiplies, add,
+#                          subtract)
+#   RK2 average         6 per cell and step
+# A call of n steps reads the state once and writes it once.
+B1_OPS_CELL_STAGE = {"hlle": 2 + 66 + 12 + 96 + 18,
+                     "hllc": 2 + 66 + 12 + 114 + 18}
+B1_OPS_CELL_RK2_STEP = 6
+B1_VALUES_PER_CELL = 6
+# phase 11: the odd shape and its step counts; phase 13's step counts
+B1_ODD_SHAPE = (96, 160)
+B1_ODD_STEPS = (1, 3, 16)
+KH_N = 2048
+KH_STEPS = 2000
+KH_RK2_STEPS = 600
+# phase 12: kh's card-against-CPU bar (float64)
+KH_CARD_CPU = dict(rtol=1e-12, atol=1e-14)
 
 
 class PhaseError(RuntimeError):
@@ -376,6 +425,149 @@ def check_final(final, sd, log, retry_notice):
     return rates, log.count(retry_notice), float(u[..., 0].min())
 
 
+def b1_bar(got, want, dtype):
+    """Kernel B1's state [3, nx, ny] against the plain version's: (max
+    |du|, max |du| in ulps of its cell's largest component), raising on a
+    non-finite value, past the float64 CPU bar, or past F32_ULPS ulps of the
+    cell in float32."""
+    import numpy as np
+    import torch
+    u, r = got.double().cpu().numpy(), want.double().cpu().numpy()
+    check(bool(np.isfinite(u).all()), "non-finite B1 state")
+    diff = np.abs(u - r)
+    ulp = np.finfo(str(dtype)[6:]).eps * np.abs(r).max(axis=0, keepdims=True)
+    err, in_ulps = float(diff.max()), float((diff / ulp).max())
+    if dtype == torch.float64:
+        check(allclose(u, r, **B1_F64), f"B1 f64 state off by {err:.3e}")
+    else:
+        check(bool(np.all(diff <= F32_ULPS * ulp + F32_ATOL)),
+              f"B1 f32 state off by {in_ulps:.1f} ulps of its cell")
+    return err, in_ulps
+
+
+def b1_bound(u, n, rk, riemann):
+    """(ms, "bytes" or "operations"): the least time for n steps of kernel
+    B1 on u [3, nx, ny], reading and writing the state once."""
+    cells = u.shape[1] * u.shape[2]
+    ops = n * cells * (rk * B1_OPS_CELL_STAGE[riemann]
+                       + (rk == 2) * B1_OPS_CELL_RK2_STEP)
+    t_bytes = B1_VALUES_PER_CELL * cells * u.element_size() / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def seeded_iso2d(nx, ny, dtype, device, seed=0):
+    """A seeded state [3, nx, ny] of density 1-1.2 and speeds ~0.1."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    sg = 1.0 + 0.2 * rng.uniform(size=(nx, ny))
+    vx = 0.1 * rng.normal(size=(nx, ny))
+    vy = 0.1 * rng.normal(size=(nx, ny))
+    return torch.tensor(np.stack([sg, sg * vx, sg * vy]), dtype=dtype,
+                        device=device)
+
+
+def bench_state(n, device):
+    """bench.py's initial state [3, n, n] in float32 (bench.py:30-36)."""
+    import torch
+    f32 = torch.float32
+    x = torch.linspace(-1, 1, n, dtype=f32, device=device)[:, None]
+    y = torch.linspace(-1, 1, n, dtype=f32, device=device)[None, :]
+    sigma = 1.0 + 0.5 * torch.exp(-(x ** 2 + y ** 2) / 0.1)
+    vx = 0.1 * torch.sin(2 * math.pi * y) * torch.ones_like(sigma)
+    vy = -0.1 * torch.sin(2 * math.pi * x) * torch.ones_like(sigma)
+    return torch.stack([sigma, sigma * vx, sigma * vy], dim=0).contiguous()
+
+
+def marginal_rate(f, zones, n1, n2, pairs=5):
+    """bench.py's protocol on the card: `pairs` marginal rates between n1
+    and n2 steps, each point the best of 2, timed with CUDA events; returns
+    (median zone-updates per second, spread (max - min) / median, rates)."""
+    import torch
+    f(n1)
+    f(n2)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def once(n):
+        start.record()
+        f(n)
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / 1e3
+
+    rates = []
+    for _ in range(pairs):
+        t1 = min(once(n1) for _ in range(2))
+        t2 = min(once(n2) for _ in range(2))
+        rates.append(zones * (n2 - n1) / (t2 - t1))
+    rates.sort()
+    median = rates[len(rates) // 2]
+    return median, (rates[-1] - rates[0]) / median, rates
+
+
+def kh_record_only(KH, samples):
+    """kh's task runner that records the time series in `samples` and writes
+    no files."""
+    def tasks(state, cfg):
+        for task in KH.TASKS:
+            if state.schedule.is_due(task):
+                if task == "write_time_series":
+                    samples.append(KH.compute_time_series_data(
+                        state.solution, cfg))
+                state = KH.State(state.solution,
+                                 state.schedule.mark_as_completed(task))
+        return state
+    return tasks
+
+
+def drive_kh(KH, T1, argv, steps, device):
+    """kh's setup() and run() of `argv` cut to `steps` steps, B1's count
+    set to 0 just before the run: (final state, log, wall seconds,
+    time-series samples, B1 calls)."""
+    import torch
+    cfg, state = KH.setup(argv, device=device)
+    cfg = cfg.set("tfinal", (steps - 0.5) * state.solution.dt)
+    print(f"{argv[1:]}: tfinal={cfg.get_double('tfinal'):.6e} ({steps} "
+          f"steps of dt {state.solution.dt:.6e})")
+    samples = []
+    tee = Tee(sys.stdout)
+    T1.advance_n_cuda.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        final = KH.run(cfg, state, tasks=kh_record_only(KH, samples))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (final, tee.buf.getvalue(), wall, samples,
+            T1.advance_n_cuda.launches)
+
+
+def check_kh(final, log, samples, calls, n, steps, path):
+    """A kh run's end: the state's shape, finite values, positive density,
+    the mass kept, every chunk one B1 call; returns the chunk kzps."""
+    import torch
+    u = final.solution.conserved
+    check(tuple(u.shape) == (n, n, 3) and u.dtype == torch.float32,
+          f"kh state {tuple(u.shape)} {u.dtype}")
+    check(final.solution.iteration == steps,
+          f"kh ran {final.solution.iteration} steps, not {steps}")
+    check(bool(torch.isfinite(u).all()), "non-finite kh state")
+    check(bool((u[..., 0] > 0).all()), "non-positive kh density")
+    chunks = re.findall(r"kzps=([0-9.]+) \[([a-z0-9_]+)\[", log)
+    check(len(chunks) >= 1 and all(p == path for _, p in chunks),
+          f"kh chunks ran {sorted(set(p for _, p in chunks))}, not {path}")
+    check(calls == len(chunks), f"{calls} B1 calls for {len(chunks)} chunks")
+    check(len(samples) >= 2, "kh recorded fewer than 2 time-series samples")
+    mass = [r["total_mass"] for r in samples]
+    # float32 steps keep the total to round-off of the sum, not exactly
+    check(abs(mass[-1] - mass[0]) <= 1e-4 * mass[0],
+          f"kh total mass moved from {mass[0]} to {mass[-1]}")
+    return [float(r) for r, _ in chunks]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -408,7 +600,9 @@ def main(argv=None) -> int:
     from mara3_tpu_torch.kernels import binary_multi as TM
     from mara3_tpu_torch.schemes import binary_step as TS
     from mara3_tpu_torch.subprograms import binary as TB
-    sources = ("binary_advance", "binary_multi")
+    from mara3_tpu_torch.kernels import iso2d_step as T1
+    from mara3_tpu_torch.subprograms import kh as KH
+    sources = ("binary_advance", "binary_multi", "iso2d_step")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -685,6 +879,127 @@ def main(argv=None) -> int:
               f"{cbusy / 1e3:.4f} ms ({100 * cbusy / 1e3 / chunk_ms:.1f}% "
               f"busy)")
 
+    # ---- phase 11: B1 against its plain version ---------------------------
+    kh_cfg = KH.config_template().create().update({"N": KH_N})
+    kh64 = KH.initial_conserved(kh_cfg, dtype=torch.float64)
+    kh_kw = KH.advance_kwargs(kh_cfg, KH.fixed_timestep(kh_cfg, kh64))
+    b1_kw = dict(cs2=kh_kw["cs2"], dtdx=kh_kw["dt"] / kh_kw["dx"],
+                 dtdy=kh_kw["dt"] / kh_kw["dy"], theta=kh_kw["theta"])
+    for dtype in (torch.float64, torch.float32):
+        worst, cases = (0.0, 0.0), 0
+        big = kh64.to(dtype).permute(2, 0, 1).contiguous().to(device)
+        odd = seeded_iso2d(*B1_ODD_SHAPE, dtype, device)
+        for riemann in ("hlle", "hllc"):
+            for rk in (1, 2):
+                kw = dict(b1_kw, rk_order=rk, riemann=riemann)
+                for u, n in [(odd, k) for k in B1_ODD_STEPS] + [(big, 16)]:
+                    got = T1.advance_n_cuda(u, n, **kw)
+                    torch.cuda.synchronize()
+                    e = b1_bar(got, T1.advance_n_plain(u, n, **kw), dtype)
+                    worst = tuple(map(max, worst, e))
+                    cases += 1
+                    if u is big and (rk, riemann) == (1, "hlle"):
+                        b1_err = e[0]
+        print(f"B1 parity {str(dtype)[6:]}: {cases} cases pass ({{hlle, "
+              f"hllc}} x {{rk1, rk2}} at {B1_ODD_SHAPE[0]}x"
+              f"{B1_ODD_SHAPE[1]}, n in {B1_ODD_STEPS}, and {KH_N}^2 16 "
+              f"steps), max |du| {worst[0]:.3e} ({worst[1]:.2f} ulps of its "
+              f"cell)")
+    del big, odd, got
+
+    # ---- phase 12: kh, card against CPU ------------------------------------
+    cfg256 = KH.config_template().create().update({"N": 256})
+    u256 = KH.initial_conserved(cfg256, dtype=torch.float64)
+    kw = dict(KH.advance_kwargs(cfg256, KH.fixed_timestep(cfg256, u256)),
+              kernel=True)
+    got = KH.advance_n(u256.to(device), 11, **kw)
+    check(KH.LAST_PATH == "cuda_b1_rk1[11]", f"card ran {KH.LAST_PATH}")
+    want = KH.advance_n(u256, 11, **kw)
+    check(KH.LAST_PATH == "plain_b1_rk1[11]", f"CPU ran {KH.LAST_PATH}")
+    check(allclose(got.cpu().numpy(), want.numpy(), **KH_CARD_CPU),
+          "kh N=256: 11 steps on the card differ from the CPU")
+    print(f"kh N=256 float64: 11 steps of B1 on the card match its plain "
+          f"version on the CPU (rtol {KH_CARD_CPU['rtol']}), max |du| "
+          f"{float((got.cpu() - want).abs().max()):.3e}")
+
+    # ---- phase 13: the kh main path ----------------------------------------
+    TK.advance_cuda.launches = TM.advance_k_cuda.launches = 0
+    kh_argv = ["kh", f"N={KH_N}"]
+    final, log, wall, samples, kh_b1 = drive_kh(KH, T1, kh_argv, KH_STEPS,
+                                                device)
+    rates = check_kh(final, log, samples, kh_b1, KH_N, KH_STEPS,
+                     "cuda_b1_rk1")
+    check(TK.advance_cuda.launches == TM.advance_k_cuda.launches == 0,
+          "kh launched B2 or B3")
+    kh_rate = KH_STEPS * KH_N * KH_N / wall
+    print(f"kh main path N={KH_N} rk1 hlle float32: {KH_STEPS} steps in "
+          f"{kh_b1} B1 calls ({len(rates)} chunks), {wall:.4f} s wall, "
+          f"{len(samples)} time-series samples, min density "
+          f"{float(final.solution.conserved[..., 0].min()):.6e}; whole-run "
+          f"{kh_rate:.6e} zone-updates/s ({kh_rate / 1e3:.2f} kzps); chunk "
+          f"kzps median {statistics.median(rates):.2f} on {smi}")
+    final, log, wall, samples, calls = drive_kh(
+        KH, T1, kh_argv + ["rk_order=2", "riemann=hllc"], KH_RK2_STEPS,
+        device)
+    rates = check_kh(final, log, samples, calls, KH_N, KH_RK2_STEPS,
+                     "cuda_b1_rk2")
+    kh2_rate = KH_RK2_STEPS * KH_N * KH_N / wall
+    print(f"kh N={KH_N} rk2 hllc float32: {KH_RK2_STEPS} steps in {calls} "
+          f"B1 calls, {wall:.4f} s wall; whole-run {kh2_rate:.6e} "
+          f"zone-updates/s on {smi}")
+    del final
+
+    # ---- phase 14: the bench-shaped rate -----------------------------------
+    ub = bench_state(KH_N, device)
+    bench_kw = dict(cs2=0.1, dtdx=0.4, dtdy=0.4, theta=1.8)
+    out = T1.advance_n_cuda(ub, 56, **bench_kw)
+    check(bool(torch.isfinite(out).all()), "non-finite bench state")
+    zps, spread, zrates = marginal_rate(
+        lambda n: T1.advance_n_cuda(ub, n, **bench_kw), KH_N * KH_N, 56, 4056)
+    print(f"bench-shaped rate (N={KH_N}, rk1 hlle float32, marginal 56 -> "
+          f"4056 steps, median of 5): {zps:.6e} zone-updates/s, spread "
+          f"{100 * spread:.1f}% (" + " ".join(f"{r:.4e}" for r in zrates)
+          + f") on {smi}")
+    del ub, out
+
+    # ---- phase 15: B1 timing at 2048^2 float32 -----------------------------
+    u = kh64.to(torch.float32).permute(2, 0, 1).contiguous().to(device)
+    kw = dict(b1_kw, rk_order=1, riemann="hlle")
+    b1_step_ms, b1_step_plain_ms, runs1 = in_turns(
+        lambda: T1.advance_n_plain(u, 1, **kw),
+        lambda: T1.advance_n_cuda(u, 1, **kw), 5, 50)
+    b1_ms, b1_plain_ms, runs16 = in_turns(
+        lambda: T1.advance_n_plain(u, 16, **kw),
+        lambda: T1.advance_n_cuda(u, 16, **kw), 1, 10)
+    b1_bnd = b1_bound(u, 16, 1, "hlle")
+    step_bound = b1_bound(u, 1, 1, "hlle")
+    print(f"time {KH_N}^2 float32 rk1 hlle: B1 {b1_step_ms:.4f} ms a step "
+          f"(one-step call) vs plain {b1_step_plain_ms:.4f} ms (runs "
+          + " ".join(f"{r:.4f}" for r in runs1) + f"); 16-step call "
+          f"{b1_ms:.4f} ms vs plain {b1_plain_ms:.4f} ms (runs "
+          + " ".join(f"{r:.4f}" for r in runs16) + f"); bound "
+          f"{step_bound[0]:.4f} ms a step ({step_bound[1]}: also the floor "
+          f"of a design that moves the state every step), {b1_bnd[0]:.4f} "
+          f"ms per 16 steps ({b1_bnd[1]})")
+    if args.profile:
+        kh_u = u.permute(1, 2, 0).contiguous()
+        kh_adv = dict(kh_kw, kernel=True)
+        KH.advance_n(kh_u, 64, **kh_adv)
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        KH.advance_n(kh_u, 64, **kh_adv)
+        torch.cuda.synchronize()
+        chunk_ms = (time.perf_counter() - c0) * 1e3
+        table, busy, launched = profile_table(
+            lambda: KH.advance_n(kh_u, 64, **kh_adv), 1)
+        with open(args.profile, "a") as f:
+            f.write(f"kh chunk of 64 steps at {KH_N}^2 float32 (B1 and the "
+                    f"layout copies): {chunk_ms:.4f} ms wall, {busy:.1f} us "
+                    f"of kernels in {launched:.0f} launches\n{table}\n")
+        print(f"profile: kh 64-step chunk {chunk_ms:.4f} ms wall, kernels "
+              f"{busy / 1e3:.4f} ms in {launched:.0f} launches "
+              f"({100 * busy / 1e3 / chunk_ms:.1f}% busy)")
+
     print(json.dumps({"kernels": [
         {"name": "binary_advance (B2)", "route": "cuda",
          "source": "mara3_tpu_torch/csrc/binary_advance.cu",
@@ -697,7 +1012,13 @@ def main(argv=None) -> int:
          "replaces": "mara3_tpu/kernels/binary_multi.py:860",
          "launches": b3_launches, "max_abs_err": b3_err,
          "ms": b3_ms, "plain_ms": b3_plain_ms, "bound_ms": b3_bound[0],
-         "bound_by": b3_bound[1], "library_ms": None}]}))
+         "bound_by": b3_bound[1], "library_ms": None},
+        {"name": "iso2d_step (B1)", "route": "cuda",
+         "source": "mara3_tpu_torch/csrc/iso2d_step.cu",
+         "replaces": "mara3_tpu/kernels/iso2d_step_v5.py:179",
+         "launches": kh_b1, "max_abs_err": b1_err,
+         "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bnd[0],
+         "bound_by": b1_bnd[1], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

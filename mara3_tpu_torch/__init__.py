@@ -11,9 +11,11 @@ What runs today: the flagship circumbinary disk,
 ``python -m mara3_tpu_torch binary key=val ...``, on the reference-shaped
 driver loop (``fast_step=0``, kernel B2 ``csrc/binary_advance.cu`` per
 advance) and on the device-resident loop (``fast_step=1``, the default on
-a GPU, with K steps per launch of kernel B3 ``csrc/binary_multi.cu``). On
-the CPU, which a caller must ask for, the same functions run as plain
-torch ops.
+a GPU, with K steps per launch of kernel B3 ``csrc/binary_multi.cu``); and
+the Kelvin-Helmholtz shear layer, ``python -m mara3_tpu_torch kh ...``, on
+a uniform periodic grid through kernel B1 ``csrc/iso2d_step.cu``. On the
+CPU, which a caller must ask for, the same functions run as plain torch
+ops.
 """
 
 __version__ = "0.1.0"

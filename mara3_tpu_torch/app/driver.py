@@ -7,6 +7,8 @@ common parts are factored once:
 - restart precedence: template defaults <- checkpoint run_config <- CLI args
   (reference subprog_binary.cpp:155-164)
 - numbered checkpoint paths and schedules
+- numbered checkpoints with solution/schedule/run_config groups
+  (reference subprog_boilerplate.cpp:201-210)
 
 h5py is imported only by the functions that open a file, so a run that
 writes no checkpoint needs no h5py.
@@ -58,3 +60,15 @@ def checkpoint_path(run_config: Config, count: int, prefix: str = "chkpt") -> st
     if outdir and outdir != ".":
         os.makedirs(outdir, exist_ok=True)
     return serialize.create_numbered_filename(prefix, count, "h5", outdir)
+
+
+def write_checkpoint_groups(path: str, run_config: Config,
+                            schedule: Schedule, write_solution_fn):
+    """Create chkpt file with the reference's three groups; the caller's
+    write_solution_fn(group) fills the solution group."""
+    import h5py
+    with h5py.File(path, "w") as f:
+        write_solution_fn(f.require_group("solution"))
+        serialize.write_schedule(f.require_group("schedule"), schedule)
+        serialize.write_config(f.require_group("run_config"), run_config)
+    print(f"write checkpoint: {path}")

@@ -15,7 +15,7 @@ from typing import Callable, Dict
 _REGISTRY: Dict[str, Callable] = {}
 
 # the subprograms this package has ported so far
-_SUBPROGRAMS = ("binary",)
+_SUBPROGRAMS = ("binary", "kh")
 
 
 def register(name: str):
@@ -49,10 +49,11 @@ def main(argv=None) -> int:
             print(f"    {name}")
         return 0
 
+    from mara3_tpu_torch.app.device import DEVICE_SELECTOR
     from mara3_tpu_torch.app.performance import time_execution
     # the one place the command line's device selector is read: "cpu" asks
     # for the plain PyTorch versions on the CPU; unset, the run needs a GPU
-    device = os.environ.get("MARA3_TPU_TORCH_DEVICE") or None
+    device = os.environ.get(DEVICE_SELECTOR) or None
     result, perf = time_execution(_REGISTRY[argv[1]], argv[1:],
                                   device=device)
     print(f"total execution time: {perf.execution_time_ms / 1e3:.8f}s")

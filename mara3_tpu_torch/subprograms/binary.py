@@ -41,6 +41,7 @@ import torch
 
 from mara3_tpu_torch.app import driver, serialize
 from mara3_tpu_torch.app.config import ConfigTemplate
+from mara3_tpu_torch.app.device import DEVICE_SELECTOR, resolve_device  # noqa: F401
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
 from mara3_tpu_torch.app.subprogram import register
 from mara3_tpu_torch.mesh import block_layout, tree
@@ -106,23 +107,6 @@ def create_config_template():
             # the device-resident step: 1 on, 0 off (the reference-shaped
             # loop), -1 auto (on for a CUDA device)
             .item("fast_step", -1))
-
-
-# the environment variable by which the command line asks for the CPU
-DEVICE_SELECTOR = "MARA3_TPU_TORCH_DEVICE"
-
-
-def resolve_device(device=None) -> torch.device:
-    """The run's device: `device` when given, else the CUDA card. Raises
-    when neither is there: the port never falls back to the CPU unasked."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on an NVIDIA GPU. To run its "
-                "plain PyTorch version on the CPU, pass device='cpu', or set "
-                f"{DEVICE_SELECTOR}=cpu for the command line")
-        device = "cuda"
-    return torch.device(device)
 
 
 def resolve_multi_launch(cfg_value: int, device) -> int:
