@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke test: the PyTorch port's flagship paths on one NVIDIA GPU.
+"""Chip smoke test: the PyTorch port's paths on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It imports
 nothing of JAX. Phases, each of which raises on failure (the script then
@@ -7,8 +7,9 @@ exits non-zero and prints no result):
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit;
-2. build: compiles mara3_tpu_torch/csrc/binary_advance.cu (kernel B2) and
-   binary_multi.cu (kernel B3), one nvcc each, started together;
+2. build: compiles mara3_tpu_torch/csrc/binary_advance.cu (kernel B2),
+   binary_multi.cu (B3), iso2d_step.cu (B1) and sedov_step.cu (B5), one
+   nvcc each, started together;
 3. B2 parity: kernel B2 against its plain PyTorch version on the card, at
    depth 3 / block 16 over {conserve_linear_p} x {hlle, hllc} x {plm, pcm}
    and at the main path's shape (depth 6 / block 96), each in float64 at
@@ -55,11 +56,29 @@ exits non-zero and prints no result):
    5 pairs timed with CUDA events, in zone-updates per second;
 15. timing at 2048^2 float32, in turns: B1 and advance_n_plain per step and
    per 16-step call, beside the bound;
+16. B5 parity: kernel B5 (csrc/sedov_step.cu) against advance_n_plain on
+   the card over {euler, srhd (warm and cold)} x {pcm, plm, weno5} x
+   {float64, float32}, at 1,000 cells (no TPU rule allows it) for n in
+   {1, 3, 17} and at 524,288 cells for 16 steps; float64 at the CPU bars,
+   float32 at 64 ulps of each cell's largest component;
+17. sedov card against CPU: ``sedov nr=256`` (SRHD pcm), float64, 11
+   steps, B5 on the card against its plain version on the CPU;
+18. sedov main path: ``sedov nr=262144`` (524,288 cells) with the defaults
+   (SRHD, pcm, float32, the chunked loop: B5 calls of up to 128 steps)
+   through sedov.setup() and sedov.run() for 4,096 steps; then
+   ``newtonian=1`` for 4,096, ``reconstruct_method=plm`` and ``=weno5``
+   for 1,024 each, and ``fast_step=0`` (one B5 call a step) for 256, every
+   B5 call counted; prints each run's whole-run rate;
+19. timing at 524,288 cells float32, in turns: B5 and advance_n_plain per
+   step and per 128-step call, Euler pcm and SRHD pcm, on the states the
+   main path ended in, beside the bound; then a B5 step's floor (a 128-step
+   call at 1,000 cells) and a time-series row's time at 524,288 cells;
 
 then prints one JSON line describing the kernels and, last, the ok line.
 ``--profile PATH`` also writes torch.profiler tables of a d6b96 B2 advance,
-a reference-loop step, a B3 launch, a 64-step chunk of the fast loop and a
-64-step kh chunk at 2048^2 to PATH, with the device's busy share of the
+a reference-loop step, a B3 launch, a 64-step chunk of the fast loop, a
+64-step kh chunk at 2048^2 and a 128-step sedov chunk at 524,288 cells to
+PATH, with the device's busy share of the
 step and of the chunks.
 """
 
@@ -172,6 +191,48 @@ KH_STEPS = 2000
 KH_RK2_STEPS = 600
 # phase 12: kh's card-against-CPU bar (float64)
 KH_CARD_CPU = dict(rtol=1e-12, atol=1e-14)
+# Kernel B5 (csrc/sedov_step.cu, with csrc/srhd_recover.cuh), counted the
+# same way per cell and step, as the function needs them, for pcm. A face's
+# two sides are its neighbour cells' primitives, so each cell's side of the
+# HLLE (conserved state, wave speeds, physical flux) is needed once, and
+# once more a step for the mirrored guard cell at face 0:
+#   Euler  147: U / dv 5, recovery 12, HLLE 85 (one side 40: conserved
+#               state 12, wave speeds 10, physical flux 18; ap and am 4,
+#               the five fluxes 41), source 5, update 40 (8 a component)
+#   SRHD   210: U / dv 5, recovery 25 outside the Newton (|S|^2 5, floor 3,
+#               1/D 1, final W, 1/(tau + D + p) and the primitives 11, the
+#               rest 5), HLLE 138 (one side 93: conserved state 21, wave
+#               speeds 46, physical flux 26; ap and am 4, the five fluxes
+#               41), source 7, update 40
+#   plus 40 a Newton update (3 reciprocals and an rsqrt among them), at the
+#   count of updates the run's data needs (b5_newton_per_cell_step)
+# plm and weno5 give each face its own two sides, so they add one side a
+# cell, and plm 105 a cell (five limited slopes of 17, face states 20),
+# weno5 670 (two reconstructions of 67 a component and face).
+B5_OPS_CELL_STEP = {"euler": 147, "srhd": 210}
+B5_OPS_SIDE = {"euler": 40, "srhd": 93}
+B5_OPS_NEWTON_UPDATE = 40
+# An n-step call must read the state and the vertices once and write the
+# state once (b5_bound). The geometry rows are formed from the vertices,
+# and the SRHD warm pressure is scratch zeroed at every call: neither is an
+# input or an output of the function.
+# kernel B5 in float64: the bars of the CPU tests of its plain version
+# against the scheme (tests/test_torch_sedov_kernel.py), which are the JAX
+# package's for its B5 (tests/test_subprograms_1d.py:214-215)
+B5_F64 = {"euler": dict(rtol=1e-11, atol=1e-13),
+          "srhd": dict(rtol=1e-8, atol=1e-10)}
+# phase 16: a cell count no TPU rule allows (nr=500: 1,000 cells) and its
+# step counts; phases 16-19: the repo's benchmark grid
+# (benchmarks/bench_all.py:92-109: 262,144 zones a decade, 524,288 cells)
+SEDOV_ODD_NR = 500
+B5_ODD_STEPS = (1, 3, 17)
+SEDOV_NR = 262144
+# phase 18's runs: (extra argv, steps, per-step loop)
+SEDOV_RUNS = ((), 4096, False), (("newtonian=1",), 4096, False), \
+    (("reconstruct_method=plm",), 1024, False), \
+    (("reconstruct_method=weno5",), 1024, False), \
+    (("fast_step=0",), 256, True)
+SEDOV_ROWS = 4           # time-series rows a run takes after its first
 
 
 class PhaseError(RuntimeError):
@@ -568,6 +629,146 @@ def check_kh(final, log, samples, calls, n, steps, path):
     return [float(r) for r, _ in chunks]
 
 
+def seeded_sedov(SD, nr, system, dtype, device, seed=0):
+    """(u, vertices, dt): the sedov state of `nr` zones per decade, every
+    cell scaled by 1 + 5% noise from a numpy seed, the outer edge too, so
+    that the kernel's outer-face stencils see distinct cells."""
+    import numpy as np
+    import torch
+    cfg = SD.config_template().create().update(
+        {"nr": str(nr), "newtonian": str(int(system == "euler"))})
+    s = SD.new_solution(cfg, dtype=torch.float64)
+    noise = 1.0 + 0.05 * np.random.default_rng(seed).uniform(
+        size=(s.conserved.shape[0], 1))
+    u = (s.conserved * torch.tensor(noise)).to(dtype=dtype, device=device)
+    return u.contiguous(), s.vertices.to(device), SD.grid_dt(s.vertices)
+
+
+def b5_bar(got, want, dtype, system):
+    """Kernel B5's state [nr, 5] against the plain version's: (max |du|,
+    max |du| in ulps of its cell's largest component), raising on a
+    non-finite value, past the float64 CPU bar, or past F32_ULPS ulps of
+    the cell in float32."""
+    import numpy as np
+    import torch
+    u, r = got.double().cpu().numpy(), want.double().cpu().numpy()
+    check(bool(np.isfinite(u).all()), "non-finite B5 state")
+    diff = np.abs(u - r)
+    ulp = np.finfo(str(dtype)[6:]).eps * np.abs(r).max(axis=1, keepdims=True)
+    err, in_ulps = float(diff.max()), float((diff / ulp).max())
+    if dtype == torch.float64:
+        check(allclose(u, r, **B5_F64[system]),
+              f"B5 f64 {system} state off by {err:.3e}")
+    else:
+        check(bool(np.all(diff <= F32_ULPS * ulp + F32_ATOL)),
+              f"B5 f32 {system} state off by {in_ulps:.1f} ulps of its cell")
+    return err, in_ulps
+
+
+def b5_bound(u, vertices, n, system, newton_per_cell_step):
+    """(ms, "bytes" or "operations"): the least time for n pcm steps of
+    kernel B5 on u [nr, 5], reading u and the vertices once and writing u
+    once, with the SRHD Newton at `newton_per_cell_step` updates."""
+    cells = u.shape[0]
+    ops = n * (cells * (B5_OPS_CELL_STEP[system] + (system == "srhd")
+                        * B5_OPS_NEWTON_UPDATE * newton_per_cell_step)
+               + B5_OPS_SIDE[system])
+    t_bytes = (2 * u.numel() * u.element_size()
+               + vertices.numel() * vertices.element_size()) / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def b5_newton_per_cell_step(T5, TREC, u, vertices, dt, n):
+    """The SRHD Newton updates a cell that warm pcm steps of B5's plain
+    version need from u: (the first step's, from p = 0, as a one-step call
+    starts; the mean a step over n steps, each step's conserved densities
+    recovered from the previous step's pressure)."""
+    import torch
+    dv = T5.geometry(vertices, u.dtype)[0]
+    inv_dv = 1.0 / dv
+    p, counts = torch.zeros_like(dv), []
+    for _ in range(n):
+        Ut = tuple(u[:, k] * inv_dv for k in range(5))
+        _, p, _, updates = TREC.recover_window(Ut, torch.clamp(p, min=0.0))
+        counts.append(int(updates.sum()) / u.shape[0])
+        u = T5.advance_n_plain(u, vertices, dt, 1, system="srhd")
+    return counts[0], sum(counts) / n
+
+
+def drive_sedov(SD, T5, extra, steps, per_step, device):
+    """sedov's setup() and run() at SEDOV_NR with `extra` argv for `steps`
+    steps, a time-series row every steps / SEDOV_ROWS steps, B5's count set
+    to 0 just before the run: (final state, cfg, log, wall seconds,
+    time-series rows, B5 calls)."""
+    import torch
+    cfg, state = SD.setup(["sedov", f"nr={SEDOV_NR}", *extra], device=device)
+    dt = SD.grid_dt(state.solution.vertices)
+    # the per-step loop runs while t < tfinal, then one more step
+    tfinal = (steps - 0.5) * dt if per_step else steps * dt
+    tsi = steps // SEDOV_ROWS * dt
+    cfg = cfg.set("tfinal", tfinal).set("tsi", tsi)
+    print(f"sedov nr={SEDOV_NR} {' '.join(extra)}: tfinal={tfinal:.6e} "
+          f"({steps} steps of dt {dt:.6e})")
+    system = SD.hydro_system(cfg)
+    rows = []
+
+    def tasks(st, cfg_):
+        for task in SD.TASKS:
+            if st.schedule.is_due(task):
+                if task == "write_time_series":
+                    rows.append(SD.compute_time_series_data(st.solution,
+                                                            system))
+                st = SD.State(st.solution,
+                              st.schedule.mark_as_completed(task))
+        return st
+
+    tee = Tee(sys.stdout)
+    T5.advance_n_cuda.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        final = SD.run(cfg, state, tasks=tasks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (final, cfg, tee.buf.getvalue(), wall, rows,
+            T5.advance_n_cuda.launches)
+
+
+def check_sedov(SD, final, cfg, log, rows, calls, steps, per_step):
+    """A sedov run's end: the step count, the state's shape and dtype,
+    finite values, positive density and pressure, the shock moved out;
+    every chunk one B5 call on the card. Returns the label of what ran."""
+    import torch
+    s = final.solution
+    u = s.conserved
+    want = steps + 1 if per_step else steps
+    check(s.iteration == want, f"sedov ran {s.iteration} steps, not {want}")
+    check(tuple(u.shape) == (2 * SEDOV_NR, 5) and u.dtype == torch.float32
+          and u.is_cuda, f"sedov state {tuple(u.shape)} {u.dtype} {u.device}")
+    check(bool(torch.isfinite(u).all()), "non-finite sedov state")
+    P = SD.primitives_of(s, SD.hydro_system(cfg))
+    check(bool((P[:, 0] > 0).all()) and bool((P[:, 4] > 0).all()),
+          "non-positive sedov density or pressure")
+    check(len(rows) >= 3, f"only {len(rows)} time-series rows")
+    radii = [r["shock_radius"] for r in rows]
+    check(radii[-1] > radii[0], f"the shock did not move out: {radii}")
+    name = SD.system_name(SD.hydro_system(cfg))
+    label = f"cuda_b5_{name}_{cfg.get_string('reconstruct_method')}"
+    if per_step:
+        check(SD.LAST_PATH == f"{label}[1]", f"per-step ran {SD.LAST_PATH}")
+        check(calls == want, f"{calls} B5 calls for {want} steps")
+    else:
+        chunks = re.findall(r"kzps=[0-9.]+ \[([a-z0-9_]+)\[(\d+)\]\]", log)
+        check(len(chunks) >= 1 and all(p == label for p, _ in chunks),
+              f"sedov chunks ran {sorted(set(p for p, _ in chunks))}")
+        check(sum(int(n) for _, n in chunks) == steps
+              and max(int(n) for _, n in chunks) == 128,
+              "sedov chunks do not add up to the run in calls of <= 128")
+        check(calls == len(chunks), f"{calls} B5 calls, {len(chunks)} chunks")
+    return label, radii
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -602,7 +803,10 @@ def main(argv=None) -> int:
     from mara3_tpu_torch.subprograms import binary as TB
     from mara3_tpu_torch.kernels import iso2d_step as T1
     from mara3_tpu_torch.subprograms import kh as KH
-    sources = ("binary_advance", "binary_multi", "iso2d_step")
+    from mara3_tpu_torch.kernels import sedov_step as T5
+    from mara3_tpu_torch.kernels import srhd_recover as TREC
+    from mara3_tpu_torch.subprograms import sedov as SD
+    sources =("binary_advance", "binary_multi", "iso2d_step", "sedov_step")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -1000,6 +1204,144 @@ def main(argv=None) -> int:
               f"{busy / 1e3:.4f} ms in {launched:.0f} launches "
               f"({100 * busy / 1e3 / chunk_ms:.1f}% busy)")
 
+    # ---- phase 16: B5 against its plain version ---------------------------
+    configs = [(system, rec, warm) for system in ("euler", "srhd")
+               for rec in ("pcm", "plm", "weno5")
+               for warm in ((True,) if system == "euler" else (True, False))]
+    for dtype in (torch.float64, torch.float32):
+        worst, cases = (0.0, 0.0), 0
+        for system in ("euler", "srhd"):
+            odd = seeded_sedov(SD, SEDOV_ODD_NR, system, dtype, device)
+            big = seeded_sedov(SD, SEDOV_NR, system, dtype, device, seed=1)
+            for system_, rec, warm in configs:
+                if system_ != system:
+                    continue
+                kw = dict(reconstruct=rec, system=system, warm=warm)
+                for (u, v, dt), n in ([(odd, k) for k in B5_ODD_STEPS]
+                                      + [(big, 16)]):
+                    got = T5.advance_n_cuda(u, v, dt, n, **kw)
+                    torch.cuda.synchronize()
+                    e = b5_bar(got, T5.advance_n_plain(u, v, dt, n, **kw),
+                               dtype, system)
+                    worst = tuple(map(max, worst, e))
+                    cases += 1
+                    if u is big[0] and (system, rec, warm) == ("srhd", "pcm",
+                                                               True):
+                        b5_err = e[0]
+            del odd, big
+        print(f"B5 parity {str(dtype)[6:]}: {cases} cases pass ({{euler, "
+              f"srhd (warm, cold)}} x {{pcm, plm, weno5}} at "
+              f"{2 * SEDOV_ODD_NR} cells, n in {B5_ODD_STEPS}, and "
+              f"{2 * SEDOV_NR} cells 16 steps), max |du| {worst[0]:.3e} "
+              f"({worst[1]:.2f} ulps of its cell)")
+    del got
+
+    # ---- phase 17: sedov, card against CPU ---------------------------------
+    cfg256 = SD.config_template().create().update({"nr": "256"})
+    s256 = SD.new_solution(cfg256, dtype=torch.float64)
+    dt256 = SD.grid_dt(s256.vertices)
+    got = SD.advance_n(s256.conserved.to(device), s256.vertices.to(device),
+                       dt256, False, 11, kernel=True)
+    check(SD.LAST_PATH == "cuda_b5_srhd_pcm[11]", f"card ran {SD.LAST_PATH}")
+    want = SD.advance_n(s256.conserved, s256.vertices, dt256, False, 11,
+                        kernel=True)
+    check(SD.LAST_PATH == "plain_b5_srhd_pcm[11]", f"CPU ran {SD.LAST_PATH}")
+    check(allclose(got.cpu().numpy(), want.numpy(), **B5_F64["srhd"]),
+          "sedov nr=256: 11 steps on the card differ from the CPU")
+    print(f"sedov nr=256 srhd pcm float64: 11 steps of B5 on the card match "
+          f"its plain version on the CPU (rtol {B5_F64['srhd']['rtol']}), "
+          f"max |du| {float((got.cpu() - want).abs().max()):.3e}")
+
+    # ---- phase 18: the sedov main path -------------------------------------
+    sedov_final = {}
+    for extra, steps, per_step in SEDOV_RUNS:
+        TK.advance_cuda.launches = TM.advance_k_cuda.launches = 0
+        T1.advance_n_cuda.launches = 0
+        final, cfg, log, wall, rows, calls = drive_sedov(
+            SD, T5, extra, steps, per_step, device)
+        label, radii = check_sedov(SD, final, cfg, log, rows, calls, steps,
+                                   per_step)
+        check(TK.advance_cuda.launches == TM.advance_k_cuda.launches
+              == T1.advance_n_cuda.launches == 0,
+              "sedov launched B1, B2 or B3")
+        if not extra:
+            b5_launches = calls
+        sedov_final[extra] = final.solution
+        rate = final.solution.iteration * 2 * SEDOV_NR / wall
+        print(f"sedov main path {' '.join(extra) or 'defaults'} ({label}, "
+              f"float32): {final.solution.iteration} steps in {calls} B5 "
+              f"calls, {wall:.4f} s wall, {len(rows)} time-series rows, "
+              f"shock radius {radii[0]:.6f} -> {radii[-1]:.6f}; whole-run "
+              f"{rate:.6e} zone-updates/s on {smi}")
+    del final
+
+    # ---- phase 19: B5 timing at 524,288 cells float32 ----------------------
+    b5_time = {}
+    for system, extra in (("euler", ("newtonian=1",)), ("srhd", ())):
+        s = sedov_final[extra]
+        u, v = s.conserved, s.vertices
+        dt = SD.grid_dt(v)
+        kw = dict(reconstruct="pcm", system=system)
+        cold, newton = b5_newton_per_cell_step(T5, TREC, u, v, dt, 128) \
+            if system == "srhd" else (0.0, 0.0)
+        step_ms, step_plain_ms, runs1 = in_turns(
+            lambda: T5.advance_n_plain(u, v, dt, 1, **kw),
+            lambda: T5.advance_n_cuda(u, v, dt, 1, **kw), 5, 50)
+        call_ms, call_plain_ms, runs128 = in_turns(
+            lambda: T5.advance_n_plain(u, v, dt, 128, **kw),
+            lambda: T5.advance_n_cuda(u, v, dt, 128, **kw), 1, 10)
+        bnd = b5_bound(u, v, 128, system, newton)
+        step_bnd = b5_bound(u, v, 1, system, cold)
+        b5_time[system] = (call_ms, call_plain_ms, bnd)
+        print(f"time {2 * SEDOV_NR} cells float32 {system} pcm: B5 "
+              f"{step_ms:.4f} ms a step (one-step call) vs plain "
+              f"{step_plain_ms:.4f} ms (runs " + " ".join(
+                  f"{r:.4f}" for r in runs1) + f"); 128-step call "
+              f"{call_ms:.4f} ms ({call_ms / 128:.5f} ms a step) vs plain "
+              f"{call_plain_ms:.4f} ms (runs " + " ".join(
+                  f"{r:.4f}" for r in runs128) + f"); Newton updates a cell "
+              f"{cold:.4f} in a cold step, {newton:.4f} a step over 128 "
+              f"warm; bound {step_bnd[0]:.5f} ms a step "
+              f"({step_bnd[1]}), {bnd[0]:.4f} ms per 128 steps ({bnd[1]}) "
+              f"on {smi}")
+    b5_ms, b5_plain_ms, b5_bnd = b5_time["srhd"]
+    # the main path's other costs: a B5 step's floor (a 128-step call at
+    # 1,000 cells, where the cells take no time), and a time-series row
+    s = sedov_final[()]
+    u_small, v_small, dt_small = seeded_sedov(SD, SEDOV_ODD_NR, "srhd",
+                                              torch.float32, device)
+    floor_ms = time_ms(lambda: T5.advance_n_cuda(
+        u_small, v_small, dt_small, 128, system="srhd"), 10) / 128
+    SD.compute_time_series_data(s, SD.srhd)
+    r0 = time.perf_counter()
+    for _ in range(3):
+        SD.compute_time_series_data(s, SD.srhd)
+    row_ms = (time.perf_counter() - r0) * 1e3 / 3
+    print(f"sedov srhd pcm float32: a B5 step at {2 * SEDOV_ODD_NR} cells "
+          f"{floor_ms:.5f} ms (128-step call); a time-series row at "
+          f"{2 * SEDOV_NR} cells {row_ms:.4f} ms on {smi}")
+    if args.profile:
+        dt = SD.grid_dt(s.vertices)
+
+        def chunk():
+            SD.advance_n(s.conserved, s.vertices, dt, False, 128)
+
+        chunk()
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        chunk_ms = (time.perf_counter() - c0) * 1e3
+        table, busy, launched = profile_table(chunk, 1)
+        with open(args.profile, "a") as f:
+            f.write(f"sedov chunk of 128 SRHD pcm steps at {2 * SEDOV_NR} "
+                    f"cells float32 (B5 and its geometry): {chunk_ms:.4f} ms "
+                    f"wall, {busy:.1f} us of kernels in {launched:.0f} "
+                    f"launches\n{table}\n")
+        print(f"profile: sedov 128-step chunk {chunk_ms:.4f} ms wall, kernels "
+              f"{busy / 1e3:.4f} ms in {launched:.0f} launches "
+              f"({100 * busy / 1e3 / chunk_ms:.1f}% busy)")
+
     print(json.dumps({"kernels": [
         {"name": "binary_advance (B2)", "route": "cuda",
          "source": "mara3_tpu_torch/csrc/binary_advance.cu",
@@ -1018,7 +1360,13 @@ def main(argv=None) -> int:
          "replaces": "mara3_tpu/kernels/iso2d_step_v5.py:179",
          "launches": kh_b1, "max_abs_err": b1_err,
          "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bnd[0],
-         "bound_by": b1_bnd[1], "library_ms": None}]}))
+         "bound_by": b1_bnd[1], "library_ms": None},
+        {"name": "sedov_step (B5)", "route": "cuda",
+         "source": "mara3_tpu_torch/csrc/sedov_step.cu",
+         "replaces": "mara3_tpu/kernels/sedov_step.py:250",
+         "launches": b5_launches, "max_abs_err": b5_err,
+         "ms": b5_ms, "plain_ms": b5_plain_ms, "bound_ms": b5_bnd[0],
+         "bound_by": b5_bnd[1], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -9,6 +9,7 @@ common parts are factored once:
 - numbered checkpoint paths and schedules
 - numbered checkpoints with solution/schedule/run_config groups
   (reference subprog_boilerplate.cpp:201-210)
+- the ``[iter] t=... kzps=...`` line of a per-step loop
 
 h5py is imported only by the functions that open a file, so a run that
 writes no checkpoint needs no h5py.
@@ -72,3 +73,10 @@ def write_checkpoint_groups(path: str, run_config: Config,
         serialize.write_schedule(f.require_group("schedule"), schedule)
         serialize.write_config(f.require_group("run_config"), run_config)
     print(f"write checkpoint: {path}")
+
+
+def print_run_loop_message(iteration: int, time: float, total_zones: int,
+                           execution_time_ms: float):
+    """The per-step line of a host loop: ``[iter] t=... kzps=...``."""
+    rate = total_zones / max(execution_time_ms, 1e-12)
+    print(f"[{iteration:04d}] t={time:3.7f} kzps={rate:3.2f}")

@@ -230,8 +230,9 @@ def test_ported_options_resolve(option, key, value):
 
 def test_no_jax_in_the_port():
     """Importing the port and running a step, the per-step scan and the
-    multi-step scan (kernel B3's plain version) loads neither jax nor the
-    JAX package, and no source file of the port imports them."""
+    multi-step scan (kernel B3's plain version), and a sedov SRHD step of
+    kernel B5's plain version, loads neither jax nor the JAX package, and
+    no source file of the port imports them."""
     code = (
         "import sys, torch\n"
         "from mara3_tpu_torch.subprograms import binary as B\n"
@@ -246,6 +247,12 @@ def test_no_jax_in_the_port():
         "s, rows = S.make_fast_scan(sd)(s, 2)\n"
         "s, rows = S.make_multi_scan(sd, k_chunk=2)(s, 2)\n"
         "assert rows.shape == (2, S.INFO_WIDTH)\n"
+        "from mara3_tpu_torch.subprograms import sedov as SD\n"
+        "s = SD.new_solution(SD.config_template().create().update("
+        "{'nr': 16}))\n"
+        "u = SD.advance_n(s.conserved, s.vertices, SD.grid_dt(s.vertices),"
+        " False, 1, kernel=True)\n"
+        "assert SD.LAST_PATH == 'plain_b5_srhd_pcm[1]', SD.LAST_PATH\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mara3_tpu' or m.startswith('mara3_tpu.')]\n"
         "assert not bad, bad\n"
