@@ -8,8 +8,8 @@ exits non-zero and prints no result):
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit;
 2. build: compiles mara3_tpu_torch/csrc/binary_advance.cu (kernel B2),
-   binary_multi.cu (B3), iso2d_step.cu (B1) and sedov_step.cu (B5), one
-   nvcc each, started together;
+   binary_multi.cu (B3), iso2d_step.cu (B1), sedov_step.cu (B5) and
+   cloud_update.cu (B4), one nvcc each, started together;
 3. B2 parity: kernel B2 against its plain PyTorch version on the card, at
    depth 3 / block 16 over {conserve_linear_p} x {hlle, hllc} x {plm, pcm}
    and at the main path's shape (depth 6 / block 96), each in float64 at
@@ -73,13 +73,32 @@ exits non-zero and prints no result):
    step and per 128-step call, Euler pcm and SRHD pcm, on the states the
    main path ended in, beside the bound; then a B5 step's floor (a 128-step
    call at 1,000 cells) and a time-series row's time at 524,288 cells;
+20. B4 parity: kernel B4's four entries (csrc/cloud_update.cu) against
+   their plain versions on the card over {pcm, plm} x {B4a, B4b and B4c
+   from a warm and a cold pressure, B4d rk1 and rk2} x {float64, float32},
+   at 100 x 50 cells (no TPU rule allows it) for B4d n in {1, 3, 17} and at
+   2,048 x 1,024 for B4d n = 4; the state and the carried pressure, float64
+   at the CPU bars, float32 at 64 ulps of each cell's largest component;
+21. cloud card against CPU: ``cloud nr=64`` rk2 plm, float64, 11 steps of
+   B4d on the card against its plain version on the CPU;
+22. cloud main path: ``cloud nr=1024 rk_order=2`` (2,048 x 1,024 cells)
+   with the defaults (float32, the chunked loop: B4d calls of up to 64
+   steps) through cloud.setup() and cloud.run() for 256 steps (the run
+   stays finite to step 305) with the diagnostics computed at the end;
+   then ``cloud nr=1024`` (rk1) for 256, and the per-step loop
+   (``fast_step=0``: B4c a step for rk2, B4b for rk1) for 32 each, every B4
+   call counted; prints each run's whole-run rate;
+23. timing at 2,048 x 1,024 float32 plm, in turns, on the state the main
+   path ended in: B4a, one B4b stage, one B4c step and one 64-step B4d call
+   against their plain versions, beside the bound; the Newton updates a
+   cell; the diagnostics' time at full size;
 
 then prints one JSON line describing the kernels and, last, the ok line.
 ``--profile PATH`` also writes torch.profiler tables of a d6b96 B2 advance,
 a reference-loop step, a B3 launch, a 64-step chunk of the fast loop, a
-64-step kh chunk at 2048^2 and a 128-step sedov chunk at 524,288 cells to
-PATH, with the device's busy share of the
-step and of the chunks.
+64-step kh chunk at 2048^2, a 128-step sedov chunk at 524,288 cells and a
+64-step cloud chunk at 2,048 x 1,024 to PATH, with the device's busy share
+of the step and of the chunks.
 """
 
 from __future__ import annotations
@@ -233,6 +252,55 @@ SEDOV_RUNS = ((), 4096, False), (("newtonian=1",), 4096, False), \
     (("reconstruct_method=weno5",), 1024, False), \
     (("fast_step=0",), 256, True)
 SEDOV_ROWS = 4           # time-series rows a run takes after its first
+# Kernel B4 (csrc/cloud_update.cu with csrc/srhd_recover.cuh), counted the
+# same way per cell and stage, as the function needs them: each limited
+# slope once per cell and axis, the two sides of each face's HLLE (pcm: a
+# cell's side once per axis, shared by its two faces), one radial and one
+# polar face a cell (the extra row of faces and the zero pole faces count
+# none):
+#   recovery    30 outside the Newton (1/dv and U 6, |S|^2 5, its floor 3,
+#                  max(p, 0) 1, 1/D 1, 1/W 1, the temperature floor 3,
+#                  1/(tau + D + p) 3, the primitives 7), plus 40 a Newton
+#                  update (as B5), at the count the run's data needs
+#                  (b4_newton_per_cell_stage)
+#   slopes      85 a cell and axis (plm: five limited slopes of 17)
+#   face states 20 a face (plm)
+#   HLLE side   56 (|u|^2 5, rsqrt and W 3, rho h 2, D 1, U 10, vn 1,
+#                  c2 3, vv 2, v2 1, k0 9, 1/(1 - vv c2) 3, am and ap 8,
+#                  the physical flux 8)
+#   HLLE       46 a face besides its sides (ap, am and 1/(ap - am) 6, the
+#                  five fluxes 40)
+#   sources     23, update 60 (12 a component), RK2 average 15 a step
+# So a stage is 30 + 2 (85 + 20 + 2 x 56 + 46) + 23 + 60 = 639 a cell for
+# plm, 30 + 2 (56 + 46) + 23 + 60 = 317 for pcm; B4a, given the
+# primitives, 30 fewer. An n-step call must read the state, the warm
+# pressure and the vertices once and write the state and the pressure once
+# (b4_bound); the geometry rows are formed from the vertices and the inflow
+# rows from the time, so neither is an input of the function.
+B4_OPS_CELL_STAGE = {1: 317, 2: 639}
+B4_OPS_RECOVERY = 30
+B4_OPS_NEWTON_UPDATE = 40
+B4_OPS_RK2_AVERAGE = 15
+# kernel B4 in float64: the bars of the CPU tests of its plain versions
+# against the port's scheme (tests/test_torch_cloud_kernel.py)
+B4_F64 = dict(rtol=1e-10, atol=1e-14)
+# phase 20: a shape no TPU rule allows (nr=50: 100 x 50 cells) and its
+# step counts; phases 20-23: the repo's cloud grid
+# (benchmarks/bench_product_cloud.py:33-45, BASELINE.md:94: nr=1024,
+# 2,048 x 1,024 cells)
+CLOUD_ODD_NR = 50
+B4_ODD_STEPS = (1, 3, 17)
+CLOUD_NR = 1024
+CLOUD_BIG_STEPS = 4
+# phase 22's runs: (extra argv, steps, per-step loop, the kernel it runs).
+# The configuration goes non-finite in float32 at step 306 (rk2) and 290
+# (rk1), through the kernel, its plain versions and the scheme alike: the
+# inner boundary empties to vacuum (tools/torch_cloud_product.py, ROADMAP
+# §C). So the runs stop at 256 steps, four B4d calls of 64.
+CLOUD_RUNS = ((("rk_order=2",), 256, False, "b4d"),
+              ((), 256, False, "b4d"),
+              (("rk_order=2", "fast_step=0"), 32, True, "b4c"),
+              (("fast_step=0",), 32, True, "b4b"))
 
 
 class PhaseError(RuntimeError):
@@ -769,6 +837,408 @@ def check_sedov(SD, final, cfg, log, rows, calls, steps, per_step):
     return label, radii
 
 
+def seeded_cloud(TC, T4, nr, dtype, device, seed=0):
+    """(u [5, Nr, Nq], warm p, inflow rows of 17 steps, geometry, dt,
+    rv, qv, jet): cloud's initial state at `nr` with its primitives
+    perturbed from a numpy seed (density and radial four-velocity by 2%, a
+    polar four-velocity of 0.01, pressure by 10%; perturbing the conserved
+    values instead leaves cold cells with no physical recovery in float32),
+    on `device` in dtype; the warm pressure is the state's own recovered
+    pressure (B4b's plain carry) within 5%."""
+    import numpy as np
+    import torch
+    cfg = TC.config_template().create().update({"nr": str(nr)})
+    s = TC.new_solution(cfg, dtype=torch.float64)
+    rv64, qv64 = s.radial_vertices.to(device), s.polar_vertices.to(device)
+    dv = TC.cell_volumes(rv64, qv64)[..., None]
+    P = TC.srhd.recover_primitive(s.conserved.to(device) / dv,
+                                  TC.GAMMA_LAW_INDEX)
+    rng = np.random.default_rng(seed)
+
+    def noise(scale, kind="uniform"):
+        draw = rng.uniform(-1, 1, P.shape[:2]) if kind == "uniform" \
+            else rng.normal(size=P.shape[:2])
+        return torch.tensor(scale * draw, device=device)
+
+    P[..., 0] *= 1.0 + noise(0.02)
+    P[..., 1] *= 1.0 + noise(0.02)
+    P[..., 2] = noise(0.01, "normal")
+    P[..., 4] *= 1.0 + noise(0.1)
+    u = (TC.srhd.to_conserved_density(P, TC.GAMMA_LAW_INDEX) * dv).permute(
+        2, 0, 1).to(dtype).contiguous()
+    rv = rv64.to(dtype)
+    qv = qv64.to(dtype)
+    dt, jet = TC.grid_dt(s, cfg), TC.jet_static(cfg)
+    rows = TC.inflow_rows(TC.ops.midpoint_on_axis(qv), 0.3, dt,
+                          max(B4_ODD_STEPS), jet)
+    geo = TC.kernel_geometry(rv, qv)
+    _, p = T4.stage_plain(rows[0], u, torch.zeros_like(u[0]), geo, dt, 1.2,
+                          2, 1e-8)
+    p = p * torch.tensor(1.0 + 0.05 * rng.uniform(size=tuple(p.shape)),
+                         dtype=dtype, device=device)
+    return u, p.contiguous(), rows, geo, dt, rv, qv, jet
+
+
+def b4_bar(got, want, dtype):
+    """Kernel B4's state [5, Nr, Nq] (or pressure [Nr, Nq]) against the
+    plain version's: (max |du|, max |du| in ulps of its cell's largest
+    component), raising on a non-finite value, past the float64 CPU bar, or
+    past F32_ULPS ulps of the cell in float32."""
+    import numpy as np
+    import torch
+    u, r = got.double().cpu().numpy(), want.double().cpu().numpy()
+    if u.ndim == 2:
+        u, r = u[None], r[None]
+    check(bool(np.isfinite(u).all()), "non-finite B4 result")
+    diff = np.abs(u - r)
+    ulp = np.finfo(str(dtype)[6:]).eps * np.abs(r).max(axis=0, keepdims=True)
+    err = float(diff.max())
+    in_ulps = float((diff / np.maximum(ulp, 1e-300)).max())
+    if dtype == torch.float64:
+        check(allclose(u, r, **B4_F64), f"B4 f64 result off by {err:.3e}")
+    else:
+        check(bool(np.all(diff <= F32_ULPS * ulp + F32_ATOL)),
+              f"B4 f32 result off by {in_ulps:.1f} ulps of its cell")
+    return err, in_ulps
+
+
+def b4_bound(u, rv, qv, stages, method, newton_per_cell_stage, steps=0,
+             recover=True):
+    """(ms, "bytes" or "operations"): the least time for `stages` stages of
+    kernel B4 on u [5, Nr, Nq] with the Newton at `newton_per_cell_stage`
+    updates and `steps` RK2 averages, reading the state, the warm pressure
+    and the vertices once and writing the state and the pressure once
+    (recover=False: B4a, reading the primitives instead of the pressure,
+    writing no pressure)."""
+    cells = u.shape[1] * u.shape[2]
+    per_stage = (B4_OPS_CELL_STAGE[method] + B4_OPS_NEWTON_UPDATE
+                 * newton_per_cell_stage) if recover else \
+        B4_OPS_CELL_STAGE[method] - B4_OPS_RECOVERY
+    ops = cells * (stages * per_stage + steps * B4_OPS_RK2_AVERAGE)
+    values = (12 if recover else 15) * cells + rv.numel() + qv.numel()
+    t_bytes = values * u.element_size() / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def b4_newton_per_cell_stage(T4, TREC, u, p, rows, geo, dt, rk, n):
+    """The Newton updates a cell that n steps of B4's plain version (plm)
+    need from (u, p): (the first stage's, the mean a stage), each stage's
+    conserved densities recovered from the previous stage's pressure."""
+    import torch
+    inv_dv = 1.0 / geo.dv
+    counts = []
+
+    def count(u_, p_):
+        Ut = tuple(u_[k] * inv_dv for k in range(5))
+        *_, updates = TREC.recover_window(Ut, torch.clamp(p_, min=0.0),
+                                          1e-8)
+        counts.append(int(updates.sum()) / u_[0].numel())
+
+    for s in range(n):
+        count(u, p)
+        u1, p = T4.stage_plain(rows[s], u, p, geo, dt, 1.2, 2, 1e-8)
+        if rk == 2:
+            count(u1, p)
+            u2, p = T4.stage_plain(rows[s + 1], u1, p, geo, dt, 1.2, 2,
+                                   1e-8)
+            u1 = 0.5 * u + 0.5 * u2
+        u = u1
+    return counts[0], sum(counts) / len(counts)
+
+
+# cloud's diagnostics in energy and power units (erg ~ 4e52, erg/s): in
+# float32 they overflow to inf, in the port as in the JAX package, whose
+# diagnostics scale float32 fields by CGS units; the others must be finite
+CLOUD_CGS_OVERFLOW = ("radial_energy_flow", "total_energy_at_theta",
+                      "postshock_flow_power")
+
+
+def cloud_tasks(TC, fields):
+    """cloud's task runner that computes the diagnostics (recording the
+    seconds each took in `fields`, and whether the fields that float32
+    holds are finite) and writes no files (the card's machine has no
+    h5py)."""
+    def tasks(st, cfg):
+        for task in TC.TASKS:
+            if st.schedule.is_due(task):
+                if task == "write_diagnostics":
+                    t0 = time.perf_counter()
+                    f = TC.make_diagnostic_fields(st.solution, cfg)
+                    f["finite"] = all(
+                        bool(v.isfinite().all()) for k, v in f.items()
+                        if hasattr(v, "isfinite")
+                        and not k.startswith(CLOUD_CGS_OVERFLOW))
+                    f["seconds"] = time.perf_counter() - t0
+                    fields.append((st.solution.iteration, f))
+                st = TC.State(st.solution,
+                              st.schedule.mark_as_completed(task))
+        return st
+    return tasks
+
+
+def drive_cloud(TC, T4, extra, steps, per_step, device):
+    """cloud's setup() and run() at CLOUD_NR with `extra` argv for `steps`
+    steps, a diagnostics write due half a step before the end, every B4
+    count set to 0 just before the run: (final state, cfg, log, wall
+    seconds, diagnostics, B4 counts by entry)."""
+    import torch
+    cfg, state = TC.setup(["cloud", f"nr={CLOUD_NR}", *extra], device=device)
+    dt = TC.grid_dt(state.solution, cfg)
+    # the per-step loop runs while t < tfinal, then one more step
+    tfinal = (steps - 0.5) * dt if per_step else steps * dt
+    cfg = cfg.update({"tfinal": str(tfinal), "dfi": str((steps - 0.5) * dt),
+                      "cpi": "100", "tsi": "100"})
+    print(f"cloud nr={CLOUD_NR} {' '.join(extra)}: tfinal={tfinal:.6e} "
+          f"({steps} steps of dt {dt:.6e})")
+    fields = []
+    wrappers = {"b4a": T4.flux_update_cuda, "b4b": T4.stage_cuda,
+                "b4c": T4.step_rk2_cuda, "b4d": T4.run_n_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        final = TC.run(cfg, state, tasks=cloud_tasks(TC, fields))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (final, cfg, tee.buf.getvalue(), wall, fields,
+            {k: w.launches for k, w in wrappers.items()})
+
+
+def check_cloud(TC, final, cfg, log, fields, counts, steps, per_step,
+                entry):
+    """A cloud run's end: the step count, the state's shape, dtype and
+    device, finite values and positive density; the diagnostics written at
+    the end and finite; every chunk (or step) one call of `entry`, no
+    other B4 entry launched. Returns the label of what ran."""
+    import torch
+    s = final.solution
+    u = s.conserved
+    want = steps + 1 if per_step else steps
+    check(s.iteration == want, f"cloud ran {s.iteration} steps, not {want}")
+    check(tuple(u.shape) == (2 * CLOUD_NR, CLOUD_NR, 5)
+          and u.dtype == torch.float32 and u.is_cuda,
+          f"cloud state {tuple(u.shape)} {u.dtype} {u.device}")
+    check(bool(torch.isfinite(u).all()), "non-finite cloud state")
+    check(bool((u[..., 0] > 0).all()), "non-positive cloud density")
+    check(s.pressure is not None and bool(torch.isfinite(s.pressure).all()),
+          "no finite warm pressure carried")
+    check([it for it, _ in fields] == [0, steps],
+          f"diagnostics at {[it for it, _ in fields]}, not [0, {steps}]")
+    check(all(f["finite"] for _, f in fields), "non-finite diagnostics")
+    rk = cfg.get_int("rk_order")
+    others = {k: v for k, v in counts.items() if k != entry and v}
+    check(not others, f"cloud launched {others} besides {entry}")
+    if per_step:
+        label = f"cuda_{entry}"
+        check(TC.LAST_PATH == f"{label}[1]", f"per-step ran {TC.LAST_PATH}")
+        check(counts[entry] == want, f"{counts[entry]} {entry} calls for "
+              f"{want} steps")
+    else:
+        label = f"cuda_b4d_rk{rk}"
+        chunks = re.findall(r"kzps=[0-9.]+ \[([a-z0-9_]+)\[(\d+)\]\]", log)
+        check(len(chunks) >= 1 and all(p == label for p, _ in chunks),
+              f"cloud chunks ran {sorted(set(p for p, _ in chunks))}")
+        check(sum(int(n) for _, n in chunks) == steps
+              and max(int(n) for _, n in chunks) == 64,
+              "cloud chunks do not add up to the run in calls of <= 64")
+        check(counts[entry] == len(chunks),
+              f"{counts[entry]} B4d calls, {len(chunks)} chunks")
+    return label
+
+
+def cloud_phases(device, smi, profile):
+    """Phases 20-23 (kernel B4 and the cloud subprogram); returns the
+    kernels line's entries of B4a-d."""
+    import numpy as np
+    import torch
+    from mara3_tpu_torch.kernels import cloud_update as T4
+    from mara3_tpu_torch.kernels import srhd_recover as TREC
+    from mara3_tpu_torch.subprograms import cloud as TC
+
+    # ---- phase 20: B4 against its plain versions --------------------------
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        worst, cases = (0.0, 0.0), 0
+        for nr, seed, steps in ((CLOUD_ODD_NR, 0, B4_ODD_STEPS),
+                                (CLOUD_NR, 1, (CLOUD_BIG_STEPS,))):
+            u, p, rows, geo, dt, rv, qv, jet = seeded_cloud(
+                TC, T4, nr, dtype, device, seed)
+            g = TC.make_geometry(rv, qv)
+            Pt = TC.srhd.recover_primitive_t(
+                tuple(u[k] / g[4] for k in range(5)), TC.GAMMA_LAW_INDEX,
+                1e-8, p)
+            Pe = torch.stack([torch.cat([rows[0][k][None], c, c[-1:]])
+                              for k, c in enumerate(Pt)]).contiguous()
+            for method in (1, 2):
+                kw = dict(geo=geo, dt=dt, plm_theta=1.2, method=method)
+                cases_ = [("b4a", T4.flux_update_cuda(Pe, u, **kw),
+                           T4.flux_update_plain(Pe, u, **kw))]
+                kw["tfloor"] = 1e-8
+                for warm in (True, False):
+                    p0 = p if warm else torch.zeros_like(p)
+                    cases_ += [
+                        ("b4b", T4.stage_cuda(rows[0], u, p0, **kw),
+                         T4.stage_plain(rows[0], u, p0, **kw)),
+                        ("b4c", T4.step_rk2_cuda(rows[0], rows[1], u, p0,
+                                                 **kw),
+                         T4.step_rk2_plain(rows[0], rows[1], u, p0, **kw))]
+                    cases_ += [("b4d", T4.run_n_cuda(rows[:n + 1], u, p0,
+                                                     rk=rk, **kw),
+                                T4.run_n_plain(rows[:n + 1], u, p0, rk=rk,
+                                               **kw))
+                               for n in steps for rk in (1, 2)]
+                torch.cuda.synchronize()
+                for entry, got, want in cases_:
+                    if entry == "b4a":
+                        e = b4_bar(got, want, dtype)
+                    else:
+                        e = b4_bar(got[0], want[0], dtype)
+                        b4_bar(got[1], want[1], dtype)
+                    worst = tuple(map(max, worst, e))
+                    cases += 1
+                    if nr == CLOUD_NR and dtype == torch.float32 \
+                            and method == 2:
+                        errs[entry] = max(errs.get(entry, 0.0), e[0])
+            del u, p, rows, geo, g, Pt, Pe, cases_
+        print(f"B4 parity {str(dtype)[6:]}: {cases} cases pass ({{b4a, b4b "
+              f"and b4c warm and cold, b4d rk1 and rk2}} x {{pcm, plm}} at "
+              f"{2 * CLOUD_ODD_NR}x{CLOUD_ODD_NR}, b4d n in {B4_ODD_STEPS}, "
+              f"and at {2 * CLOUD_NR}x{CLOUD_NR}, b4d n = {CLOUD_BIG_STEPS}),"
+              f" max |du| {worst[0]:.3e} ({worst[1]:.2f} ulps of its cell)")
+
+    # ---- phase 21: cloud, card against CPU ---------------------------------
+    cfg64 = TC.config_template().create().update({"nr": "64",
+                                                  "rk_order": "2"})
+    s64 = TC.new_solution(cfg64, dtype=torch.float64)
+    dt64, jet64 = TC.grid_dt(s64, cfg64), TC.jet_static(cfg64)
+    runs = []
+    for dev_ in (device, torch.device("cpu")):
+        us = s64.conserved.permute(2, 0, 1).contiguous().to(dev_)
+        runs.append(TC.advance_n(us, torch.zeros_like(us[0]), 0.0, 11,
+                                 s64.radial_vertices.to(dev_),
+                                 s64.polar_vertices.to(dev_), jet64, dt64,
+                                 1.2, 2, 1e-8, 2, kernel=True))
+        where = "cuda" if dev_.type == "cuda" else "plain"
+        check(TC.LAST_PATH == f"{where}_b4d_rk2[11]",
+              f"{dev_} ran {TC.LAST_PATH}")
+    (gu, gp), (cu, cp) = runs
+    check(allclose(gu.cpu().numpy(), cu.numpy(), **B4_F64)
+          and allclose(gp.cpu().numpy(), cp.numpy(), **B4_F64),
+          "cloud nr=64: 11 steps on the card differ from the CPU")
+    print(f"cloud nr=64 rk2 plm float64: 11 steps of B4d on the card match "
+          f"its plain version on the CPU (rtol {B4_F64['rtol']}), max |du| "
+          f"{float((gu.cpu() - cu).abs().max()):.3e}")
+    del s64, runs, gu, gp, cu, cp
+
+    # ---- phase 22: the cloud main path -------------------------------------
+    launches, finals = {}, {}
+    for extra, steps, per_step, entry in CLOUD_RUNS:
+        final, cfg, log, wall, fields, counts = drive_cloud(
+            TC, T4, extra, steps, per_step, device)
+        label = check_cloud(TC, final, cfg, log, fields, counts, steps,
+                            per_step, entry)
+        launches.setdefault(entry, counts[entry])
+        finals[extra] = final.solution
+        it = final.solution.iteration
+        rate = it * 2 * CLOUD_NR * CLOUD_NR / wall
+        diag_s = fields[-1][1]["seconds"]
+        print(f"cloud main path {' '.join(extra) or 'defaults (rk1)'} "
+              f"({label}, float32): {it} steps in {counts[entry]} "
+              f"{entry.upper()} calls, {wall:.4f} s wall (the diagnostics "
+              f"at the end {diag_s:.4f} s of it), min density "
+              f"{float(final.solution.conserved[..., 0].min()):.6e}; "
+              f"whole-run {rate:.6e} zone-updates/s on {smi}")
+    del final
+    launches["b4a"] = 0     # on no run path (as in the JAX package)
+
+    # ---- phase 23: B4 timing at 2,048 x 1,024 float32 ----------------------
+    s = finals[("rk_order=2",)]
+    u = s.conserved.permute(2, 0, 1).contiguous()
+    p = s.pressure.contiguous()
+    rv, qv = s.radial_vertices, s.polar_vertices
+    cfg = TC.config_template().create().update({"nr": str(CLOUD_NR)})
+    dt = TC.grid_dt(s, cfg)
+    rows = TC.inflow_rows(TC.ops.midpoint_on_axis(qv), s.time, dt, 64,
+                          TC.jet_static(cfg))
+    geo = TC.kernel_geometry(rv, qv)
+    kw = dict(geo=geo, dt=dt, plm_theta=1.2, method=2, tfloor=1e-8)
+    g = TC.make_geometry(rv, qv)
+    Pt = TC.srhd.recover_primitive_t(tuple(u[k] / g[4] for k in range(5)),
+                                     TC.GAMMA_LAW_INDEX, 1e-8, p)
+    Pe = torch.stack([torch.cat([rows[0][k][None], c, c[-1:]])
+                      for k, c in enumerate(Pt)]).contiguous()
+    first, newton = b4_newton_per_cell_stage(T4, TREC, u, p, rows, geo, dt,
+                                             2, 64)
+    timed = {
+        "b4a": (lambda: T4.flux_update_plain(Pe, u, geo, dt, 1.2, 2),
+                lambda: T4.flux_update_cuda(Pe, u, geo, dt, 1.2, 2),
+                5, 50, b4_bound(u, rv, qv, 1, 2, 0, recover=False)),
+        "b4b": (lambda: T4.stage_plain(rows[0], u, p, **kw),
+                lambda: T4.stage_cuda(rows[0], u, p, **kw), 3, 30,
+                b4_bound(u, rv, qv, 1, 2, first)),
+        "b4c": (lambda: T4.step_rk2_plain(rows[0], rows[1], u, p, **kw),
+                lambda: T4.step_rk2_cuda(rows[0], rows[1], u, p, **kw), 2,
+                20, b4_bound(u, rv, qv, 2, 2, newton, steps=1)),
+        "b4d": (lambda: T4.run_n_plain(rows, u, p, **kw),
+                lambda: T4.run_n_cuda(rows, u, p, **kw), 1, 3,
+                b4_bound(u, rv, qv, 128, 2, newton, steps=64)),
+    }
+    times = {}
+    for entry, (plain, kernel, pr, kr, bnd) in timed.items():
+        k_ms, p_ms, runs = in_turns(plain, kernel, pr, kr)
+        times[entry] = (k_ms, p_ms, bnd)
+        print(f"time {2 * CLOUD_NR}x{CLOUD_NR} float32 rk2 plm: "
+              f"{entry.upper()} {k_ms:.4f} ms vs plain {p_ms:.4f} ms (runs "
+              + " ".join(f"{r:.4f}" for r in runs) + f"); bound "
+              f"{bnd[0]:.5f} ms ({bnd[1]}) on {smi}")
+    print(f"cloud B4: Newton updates a cell {first:.4f} in the first stage, "
+          f"{newton:.4f} a stage over 64 RK2 steps from the main path's "
+          f"end (B4d 64 steps: {times['b4d'][0] / 128:.5f} ms a stage)")
+    TC.make_diagnostic_fields(s, cfg)
+    torch.cuda.synchronize()
+    d0 = time.perf_counter()
+    fields = TC.make_diagnostic_fields(s, cfg)
+    torch.cuda.synchronize()
+    print(f"cloud diagnostics at {2 * CLOUD_NR}x{CLOUD_NR} float32: "
+          f"{(time.perf_counter() - d0) * 1e3:.4f} ms, shock midpoint "
+          f"radius on the axis {float(fields['shock_midpoint_radius'][0]):.6e}"
+          f" cm on {smi}")
+    if profile:
+        def chunk():
+            TC.advance_n(u, p, s.time, 64, rv, qv, TC.jet_static(cfg), dt,
+                         1.2, 2, 1e-8, 2)
+
+        chunk()
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        chunk_ms = (time.perf_counter() - c0) * 1e3
+        table, busy, launched = profile_table(chunk, 1)
+        with open(profile, "a") as f:
+            f.write(f"cloud chunk of 64 RK2 plm steps at {2 * CLOUD_NR}x"
+                    f"{CLOUD_NR} float32 (B4d, its inflow rows and "
+                    f"geometry): {chunk_ms:.4f} ms wall, {busy:.1f} us of "
+                    f"kernels in {launched:.0f} launches\n{table}\n")
+        print(f"profile: cloud 64-step chunk {chunk_ms:.4f} ms wall, kernels "
+              f"{busy / 1e3:.4f} ms in {launched:.0f} launches "
+              f"({100 * busy / 1e3 / chunk_ms:.1f}% busy)")
+
+    names = {"b4a": ("flux_update", 200), "b4b": ("stage", 462),
+             "b4c": ("step_rk2", 770), "b4d": ("run_n", 910)}
+    return [{"name": f"cloud_update {fn} ({entry.upper()})", "route": "cuda",
+             "source": "mara3_tpu_torch/csrc/cloud_update.cu",
+             "replaces": f"mara3_tpu/kernels/cloud_update.py:{line}",
+             "launches": launches[entry], "max_abs_err": errs[entry],
+             "ms": times[entry][0], "plain_ms": times[entry][1],
+             "bound_ms": times[entry][2][0], "bound_by": times[entry][2][1],
+             "library_ms": None}
+            for entry, (fn, line) in names.items()]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -806,7 +1276,8 @@ def main(argv=None) -> int:
     from mara3_tpu_torch.kernels import sedov_step as T5
     from mara3_tpu_torch.kernels import srhd_recover as TREC
     from mara3_tpu_torch.subprograms import sedov as SD
-    sources =("binary_advance", "binary_multi", "iso2d_step", "sedov_step")
+    sources = ("binary_advance", "binary_multi", "iso2d_step", "sedov_step",
+               "cloud_update")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -1342,6 +1813,8 @@ def main(argv=None) -> int:
               f"{busy / 1e3:.4f} ms in {launched:.0f} launches "
               f"({100 * busy / 1e3 / chunk_ms:.1f}% busy)")
 
+    b4 = cloud_phases(device, smi, args.profile)
+
     print(json.dumps({"kernels": [
         {"name": "binary_advance (B2)", "route": "cuda",
          "source": "mara3_tpu_torch/csrc/binary_advance.cu",
@@ -1366,7 +1839,7 @@ def main(argv=None) -> int:
          "replaces": "mara3_tpu/kernels/sedov_step.py:250",
          "launches": b5_launches, "max_abs_err": b5_err,
          "ms": b5_ms, "plain_ms": b5_plain_ms, "bound_ms": b5_bnd[0],
-         "bound_by": b5_bnd[1], "library_ms": None}]}))
+         "bound_by": b5_bnd[1], "library_ms": None}, *b4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

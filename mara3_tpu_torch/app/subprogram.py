@@ -15,7 +15,7 @@ from typing import Callable, Dict
 _REGISTRY: Dict[str, Callable] = {}
 
 # the subprograms this package has ported so far
-_SUBPROGRAMS = ("binary", "kh", "sedov")
+_SUBPROGRAMS = ("binary", "cloud", "kh", "sedov")
 
 
 def register(name: str):

@@ -187,8 +187,8 @@ step_kernel(const T* __restrict__ src, T* __restrict__ dst,
       const T p0 = p_in ? srhd::clamp_min(p_in[j], T(0)) : T(0);
       T p_final;
       bool done;
-      srhd::recover(Ut[0], Ut[1], Ut[2], Ut[3], Ut[4], p0, prim, &p_final,
-                    &done);
+      srhd::recover(Ut[0], Ut[1], Ut[2], Ut[3], Ut[4], p0, T(0), prim,
+                    &p_final, &done);
       if (p_out && j >= c0 && j < c0 + kThreads) p_out[j] = p_final;
     } else {
       const T d = Ut[0];

@@ -1,6 +1,6 @@
 // SRHD primitive recovery for one cell: the Newton iteration on the
-// pressure that kernels B5 (sedov_step.cu) and, later, B4 (cloud) run inside
-// the kernel.
+// pressure that kernels B5 (sedov_step.cu) and B4 (cloud_update.cu) run
+// inside the kernel.
 //
 // Device twin of mara3_tpu_torch/kernels/srhd_recover.py (the plain
 // version), itself the port of mara3_tpu/kernels/cloud_update.py:267-344
@@ -15,7 +15,7 @@
 // version's torch op does; 1/x is the IEEE quotient (torch.reciprocal), and
 // rsqrt is the CUDA math library's (2 ulps in float32), the function
 // torch.rsqrt calls on the card. The NaN-propagating min and max copy
-// torch.clamp's.
+// torch.clamp's, and max_nan torch.maximum's.
 
 #pragma once
 
@@ -40,14 +40,24 @@ __device__ __forceinline__ T clamp_max(T x, T hi) { return x > hi ? hi : x; }
 template <typename T>
 __device__ __forceinline__ T clamp_min(T x, T lo) { return x < lo ? lo : x; }
 
+// torch.maximum: a NaN in either operand wins
+template <typename T>
+__device__ __forceinline__ T max_nan(T a, T b) {
+  return (a != a) ? a : ((b != b) ? b : (a < b ? b : a));
+}
+
 // Primitives (rho, u1, u2, u3, p) of the conserved densities
-// (D, S1, S2, S3, tau), from the pressure guess p0. *p_final is the final
-// pressure (the next step's warm start); returns the count of Newton
-// updates, at most kNewtonIterMax (the cell did not converge when it is
-// kNewtonIterMax and *done is false).
+// (D, S1, S2, S3, tau), from the pressure guess p0. With tfloor > 0 the
+// pressure is floored at tfloor D / W before the primitives are formed
+// (cloud_update.py:339-344); at tfloor == 0 that branch is skipped, as the
+// TPU kernel's static `if tfloor > 0.0` skips it. *p_final is the final
+// pressure before the floor (sedov's warm start; cloud carries the floored
+// prim[4]); returns the count of Newton updates, at most kNewtonIterMax
+// (the cell did not converge when it is kNewtonIterMax and *done is false).
 template <typename T>
 __device__ __forceinline__ int recover(T D, T S1, T S2, T S3, T tau, T p0,
-                                       T prim[5], T* p_final, bool* done) {
+                                       T tfloor, T prim[5], T* p_final,
+                                       bool* done) {
   const T SS = S1 * S1 + S2 * S2 + S3 * S3;
   const T eps_rel = T(8) * machine_eps(T(0));
   const T f_floor = eps_rel * (fabs(tau) + D);
@@ -74,13 +84,14 @@ __device__ __forceinline__ int recover(T D, T S1, T S2, T S3, T tau, T p0,
     p = p_next;
   }
   const T invW = T(1) / Wc;
+  *p_final = p;
+  if (tfloor > T(0)) p = max_nan(p, tfloor * D * invW);
   const T inv_denom = T(1) / (tau + D + p);
   prim[0] = D * invW;
   prim[1] = Wc * S1 * inv_denom;
   prim[2] = Wc * S2 * inv_denom;
   prim[3] = Wc * S3 * inv_denom;
   prim[4] = p;
-  *p_final = p;
   *done = is_done;
   return it;
 }

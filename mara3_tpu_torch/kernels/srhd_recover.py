@@ -36,9 +36,11 @@ def _rcp(x):
 def recover_window(Ut, p0, tfloor: float = 0.0):
     """Primitives of the conserved densities Ut = (D, S1, S2, S3, tau) by
     the masked Newton from the pressure guess p0: (Pt, p, done, updates),
-    with p the final pressure before the floor tfloor * D / W (the next
-    step's warm start) and updates
-    each cell's count of Newton updates."""
+    with updates each cell's count of Newton updates. With tfloor > 0 the
+    pressure Pt[4] is floored at tfloor * D / W (cloud_update.py:339-344);
+    tfloor = 0 skips the floor, as the TPU kernel's static test does. p is
+    the final pressure before the floor: sedov's warm start. Cloud carries
+    the floored Pt[4] to its next stage (cloud_update.py:446, :459)."""
     D, S1, S2, S3, tau = Ut
     SS = S1 * S1 + S2 * S2 + S3 * S3
     eps_rel = 8.0 * torch.finfo(D.dtype).eps

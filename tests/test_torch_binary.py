@@ -230,9 +230,10 @@ def test_ported_options_resolve(option, key, value):
 
 def test_no_jax_in_the_port():
     """Importing the port and running a step, the per-step scan and the
-    multi-step scan (kernel B3's plain version), and a sedov SRHD step of
-    kernel B5's plain version, loads neither jax nor the JAX package, and
-    no source file of the port imports them."""
+    multi-step scan (kernel B3's plain version), a sedov SRHD step of
+    kernel B5's plain version, and two cloud steps of kernel B4d's plain
+    version, loads neither jax nor the JAX package, and no source file of
+    the port imports them."""
     code = (
         "import sys, torch\n"
         "from mara3_tpu_torch.subprograms import binary as B\n"
@@ -253,6 +254,14 @@ def test_no_jax_in_the_port():
         "u = SD.advance_n(s.conserved, s.vertices, SD.grid_dt(s.vertices),"
         " False, 1, kernel=True)\n"
         "assert SD.LAST_PATH == 'plain_b5_srhd_pcm[1]', SD.LAST_PATH\n"
+        "from mara3_tpu_torch.subprograms import cloud as C\n"
+        "c = C.new_solution(C.config_template().create().update("
+        "{'nr': 8}))\n"
+        "us = c.conserved.permute(2, 0, 1).contiguous()\n"
+        "C.advance_n(us, torch.zeros_like(us[0]), 0.0, 2, c.radial_vertices,"
+        " c.polar_vertices, C.jet_static(C.config_template().create()),"
+        " 1e-3, 1.2, 2, 1e-8, 2, kernel=True)\n"
+        "assert C.LAST_PATH == 'plain_b4d_rk2[2]', C.LAST_PATH\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mara3_tpu' or m.startswith('mara3_tpu.')]\n"
         "assert not bad, bad\n"
