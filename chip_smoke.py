@@ -8,8 +8,9 @@ exits non-zero and prints no result):
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit;
 2. build: compiles mara3_tpu_torch/csrc/binary_advance.cu (kernel B2),
-   binary_multi.cu (B3), iso2d_step.cu (B1), sedov_step.cu (B5) and
-   cloud_update.cu (B4), one nvcc each, started together;
+   binary_multi.cu (B3), iso2d_step.cu (B1), sedov_step.cu (B5),
+   cloud_update.cu (B4), amrsand_step.cu (B6) and sand3d_step.cu (B7), one
+   nvcc each, started together;
 3. B2 parity: kernel B2 against its plain PyTorch version on the card, at
    depth 3 / block 16 over {conserve_linear_p} x {hlle, hllc} x {plm, pcm}
    and at the main path's shape (depth 6 / block 96), each in float64 at
@@ -92,13 +93,43 @@ exits non-zero and prints no result):
    path ended in: B4a, one B4b stage, one B4c step and one 64-step B4d call
    against their plain versions, beside the bound; the Newton updates a
    cell; the diagnostics' time at full size;
+24. B6 parity: kernel B6 (csrc/amrsand_step.cu) against advance_n_plain on
+   the card at depth 3 / block 8 (every face case) and depth 7 / block 64,
+   n in {1, 3, 17}, from seeded states; float64 at the CPU bars, float32
+   each element within 64 ulps of its cell (and the count of cases that
+   are bit for bit);
+25. amrsand card against CPU: ``amrsand depth=3 block_size=16
+   tfinal=0.25`` in float64, with and without ``regrid=1 rgi=0.05``, B6 on
+   the card against the scheme on the CPU, the same meshes at the end;
+26. amrsand main path: ``amrsand depth=7 block_size=64`` (652 blocks of
+   64^2, float32, the chunked loop: B6 calls of up to 256 steps) through
+   amrsand.setup() and amrsand.run() to the default tfinal=1.0 (8,192
+   steps), with a task runner that copies each diagnostics write's state to
+   the host and tests it, writing no files; prints the whole-run rate, B6's
+   calls and launches and the writes' wall time; then ``regrid=1 rgi=0.1
+   tfinal=0.3`` at the same width, with each regrid's blocks and host time,
+   and the time of remap_blocks alone;
+27. timing at depth 7 / block 64 float32, in turns: B6 and advance_n_plain
+   per step and per 256-step call, the marginal rate between 10 and 110
+   steps (bench_all.py:264's window), beside the bound; and a step per cell
+   at block 128, where the state no longer fits in the L2;
+28. B7 parity: kernel B7 (csrc/sand3d_step.cu) against advance_n_plain at
+   depth 3 / block 8 and depth 4 / block 16, n in {1, 3, 17}; float64 at
+   the CPU bar (1e-13 of max |u|), float32 as in phase 24;
+29. sand3d card against CPU: ``sand3d depth=3 block_size=8 tfinal=0.1``
+   in float64, B7 on the card against the scheme on the CPU;
+30. sand3d main path: ``sand3d depth=4 block_size=16 tfinal=1.0`` (344
+   blocks of 16^3, float32, 384 steps in one B7 call) through
+   sand3d.setup() and sand3d.run(); then B7's timing as in phase 27, the
+   call being the main path's 384 steps;
 
 then prints one JSON line describing the kernels and, last, the ok line.
 ``--profile PATH`` also writes torch.profiler tables of a d6b96 B2 advance,
 a reference-loop step, a B3 launch, a 64-step chunk of the fast loop, a
-64-step kh chunk at 2048^2, a 128-step sedov chunk at 524,288 cells and a
-64-step cloud chunk at 2,048 x 1,024 to PATH, with the device's busy share
-of the step and of the chunks.
+64-step kh chunk at 2048^2, a 128-step sedov chunk at 524,288 cells, a
+64-step cloud chunk at 2,048 x 1,024, a 256-step amrsand chunk at depth 7
+/ block 64 and a 384-step B7 call at depth 4 / block 16 to PATH, with the
+device's busy share of the step and of the chunks.
 """
 
 from __future__ import annotations
@@ -301,6 +332,30 @@ CLOUD_RUNS = ((("rk_order=2",), 256, False, "b4d"),
               ((), 256, False, "b4d"),
               (("rk_order=2", "fast_step=0"), 32, True, "b4c"),
               (("fast_step=0",), 32, True, "b4b"))
+# Kernels B6 (csrc/amrsand_step.cu) and B7 (csrc/sand3d_step.cu), counted
+# the same way per cell and step: B6 2 u, two subtracts, the product with c
+# and the update (5); B7 three subtracts, three products, two sums and the
+# update (9); the guards' averages (on block edges only) count none. A call
+# of n steps must read the state and its face table and courant factors
+# once and write the state once (b6_bound, b7_bound).
+B6_OPS_CELL_STEP = 5
+B7_OPS_CELL_STEP = 9
+# phases 24-27: the repo's amrsand benchmark configuration
+# (benchmarks/bench_all.py:233-266, BASELINE.md:95 "amrsand d8b64": the
+# tree is one level deeper than `depth`), 652 blocks of 64^2, and the
+# marginal window of bench_all.py:264; phases 28-30: the repo's 3D product
+# run (BASELINE.md:505-516), 344 blocks of 16^3
+AMR_DEPTH, AMR_BS = 7, 64
+AMR_MARGINAL = (10, 110)
+SAND3D_DEPTH, SAND3D_BS = 4, 16
+AMR_STEPS = (1, 3, 17)
+# B6 in float64: the JAX package's bar for its B6 against the scheme
+# (tests/test_mesh_amr.py:268-269); B7 the JAX bars for its B7, times
+# max |u| (tests/test_sand3d_kernel.py:55-56); whole runs, card against
+# CPU, the bar of tests/test_torch_amrsand.py's runs
+B6_F64 = dict(rtol=1e-13, atol=1e-15)
+B7_BAR = {"float64": 1e-13, "float32": 5e-6}
+AMR_RUN = dict(rtol=1e-12, atol=1e-14)
 
 
 class PhaseError(RuntimeError):
@@ -948,18 +1003,20 @@ def b4_newton_per_cell_stage(T4, TREC, u, p, rows, geo, dt, rk, n):
     return counts[0], sum(counts) / len(counts)
 
 
-# cloud's diagnostics in energy and power units (erg ~ 4e52, erg/s): in
-# float32 they overflow to inf, in the port as in the JAX package, whose
-# diagnostics scale float32 fields by CGS units; the others must be finite
-CLOUD_CGS_OVERFLOW = ("radial_energy_flow", "total_energy_at_theta",
-                      "postshock_flow_power")
+# cloud's diagnostics in energy and power units (erg ~ 4e52, erg/s) would
+# overflow float32, as the JAX package's do; the port forms them in float64,
+# so every field must be finite, and these float64
+CLOUD_CGS_FIELDS = ("radial_energy_flow", "total_energy_at_theta",
+                    "postshock_flow_power")
 
 
 def cloud_tasks(TC, fields):
     """cloud's task runner that computes the diagnostics (recording the
-    seconds each took in `fields`, and whether the fields that float32
-    holds are finite) and writes no files (the card's machine has no
-    h5py)."""
+    seconds each took in `fields`, and whether every field is finite, those
+    in erg and erg/s in float64) and writes no files (the card's machine
+    has no h5py)."""
+    import torch
+
     def tasks(st, cfg):
         for task in TC.TASKS:
             if st.schedule.is_due(task):
@@ -967,9 +1024,10 @@ def cloud_tasks(TC, fields):
                     t0 = time.perf_counter()
                     f = TC.make_diagnostic_fields(st.solution, cfg)
                     f["finite"] = all(
-                        bool(v.isfinite().all()) for k, v in f.items()
-                        if hasattr(v, "isfinite")
-                        and not k.startswith(CLOUD_CGS_OVERFLOW))
+                        bool(v.isfinite().all()) for v in f.values()
+                        if hasattr(v, "isfinite")) and all(
+                        v.dtype == torch.float64 for k, v in f.items()
+                        if k.startswith(CLOUD_CGS_FIELDS))
                     f["seconds"] = time.perf_counter() - t0
                     fields.append((st.solution.iteration, f))
                 st = TC.State(st.solution,
@@ -1239,6 +1297,379 @@ def cloud_phases(device, smi, profile):
             for entry, (fn, line) in names.items()]
 
 
+def amr_bar(got, want, dtype, f64_bar):
+    """(max |du|, max |du| in float32 ulps of its cell, bit for bit) of a
+    one-component state against the plain version's, raising on a
+    non-finite value, past `f64_bar` (rtol, atol) in float64, or past
+    F32_ULPS ulps of the cell in float32."""
+    import numpy as np
+    import torch
+    g, w = got.double().cpu().numpy(), want.double().cpu().numpy()
+    check(bool(np.isfinite(g).all()), "non-finite kernel output")
+    diff = np.abs(g - w)
+    ulp = np.finfo(np.float32).eps * np.abs(w)
+    in_ulps = float((diff / np.maximum(ulp, 1e-300)).max())
+    if dtype == torch.float64:
+        check(allclose(g, w, **f64_bar), f"f64 state off by {diff.max():.3e}")
+    else:
+        check(bool(np.all(diff <= F32_ULPS * ulp)),
+              f"f32 state off by {in_ulps:.1f} ulps of its cell")
+    return float(diff.max()), in_ulps, bool(torch.equal(got, want))
+
+
+def seeded_amr(AS, S3, BL, T6, T7, kind, depth, bs, dtype, device, seed=0):
+    """(u, tables) of amrsand's quadtree (kind "b6") or sand3d's octree
+    ("b7") at depth and bs, each cell scaled by 1 + 5% noise from a numpy
+    seed, with the subprogram's dt."""
+    import numpy as np
+    import torch
+    if kind == "b6":
+        cfg = AS.config_template().create().update(
+            {"depth": depth, "block_size": bs})
+        s = AS.new_solution(cfg, dtype=torch.float64)
+        u0 = s.conserved
+    else:
+        cfg = S3.config_template().create().update(
+            {"depth": depth, "block_size": bs})
+        mesh = S3.build_mesh(cfg)
+        u0 = S3.new_solution(cfg, mesh, dtype=torch.float64).conserved
+    rng = np.random.default_rng(seed)
+    u = (u0 * torch.as_tensor(1.0 + 0.05 * rng.uniform(size=tuple(
+        u0.shape)))).to(dtype=dtype, device=device).contiguous()
+    if kind == "b6":
+        s = replace(s, conserved=u)
+        return u, T6.guard_tables(BL.build_neighbor_table(s.leaves),
+                                  AS.block_spacings(s), AS.time_step(s))
+    return u, T7.guard_tables(mesh, S3.block_spacings(mesh, bs, dtype,
+                                                      device),
+                              S3.VELOCITY, S3.time_step(mesh, bs))
+
+
+def amr_bound(u, tables, n, ops_cell_step):
+    """(ms, "bytes" or "operations"): the least time for n steps of B6 or
+    B7 on u, reading u, its face table and courant factors once and writing
+    u once."""
+    cells = u.numel()
+    t_bytes = (2 * cells * u.element_size()
+               + tables.faces.numel() * tables.faces.element_size()
+               + tables.c.numel() * tables.c.element_size()) / HBM_BYTES_PER_S
+    t_ops = n * cells * ops_cell_step / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def amr_tasks(writes):
+    """amrsand's and sand3d's task runner: each diagnostics write copies
+    the state to the host and tests it for finiteness, as the writers do,
+    records (iteration, seconds) in `writes`, and writes no files (the
+    card's machine has no h5py)."""
+    from mara3_tpu_torch.app import driver
+
+    def tasks(st, cfg):
+        if st.schedule.is_due("write_diagnostics"):
+            t0 = time.perf_counter()
+            s = st.solution
+            u = s.conserved.detach().cpu().numpy()
+            driver.check_finite("diagnostics", [u], s.iteration, s.time)
+            writes.append((s.iteration, time.perf_counter() - t0))
+            st = replace(st, schedule=st.schedule.mark_as_completed(
+                "write_diagnostics"))
+        return st
+    return tasks
+
+
+def drive_amr(module, argv, device, dtype=None, quiet=False):
+    """setup() and run() of `argv` through the no-file task runner, B6's
+    and B7's counts set to 0 just before the run: (final state, log, wall
+    seconds, diagnostics writes, B6 calls, B7 calls)."""
+    import torch
+    from mara3_tpu_torch.kernels import amrsand_step as T6
+    from mara3_tpu_torch.kernels import sand3d_step as T7
+    with contextlib.redirect_stdout(io.StringIO()):
+        cfg, state = module.setup(argv, device=device, dtype=dtype)
+    writes = []
+    T6.advance_n_cuda.launches = T7.advance_n_cuda.launches = 0
+    tee = Tee(io.StringIO() if quiet else sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        final = module.run(cfg, state, tasks=amr_tasks(writes))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (final, tee.buf.getvalue(), wall, writes,
+            T6.advance_n_cuda.launches, T7.advance_n_cuda.launches)
+
+
+def check_amr_chunks(log, label, steps, calls):
+    """Every chunk of the log ran `label`, the chunks add up to `steps`
+    and each was one counted call; returns the chunks' step counts."""
+    chunks = re.findall(r"kzps=[0-9.]+ \[([a-z0-9_]+)\[(\d+)\]\]", log)
+    check(len(chunks) >= 1 and all(p == label for p, _ in chunks),
+          f"chunks ran {sorted(set(p for p, _ in chunks))}, not {label}")
+    check(sum(int(n) for _, n in chunks) == steps,
+          f"chunks add up to {sum(int(n) for _, n in chunks)} steps, not "
+          f"{steps}")
+    check(calls == len(chunks), f"{calls} calls, {len(chunks)} chunks")
+    return [int(n) for _, n in chunks]
+
+
+def amr_phases(device, smi, profile):
+    """Phases 24-30 (kernels B6 and B7, the amrsand and sand3d
+    subprograms); returns the kernels line's entries of B6 and B7."""
+    import numpy as np
+    import torch
+    from mara3_tpu_torch.kernels import amrsand_step as T6
+    from mara3_tpu_torch.kernels import sand3d_step as T7
+    from mara3_tpu_torch.mesh import block_layout as BL
+    from mara3_tpu_torch.mesh import regrid as RG
+    from mara3_tpu_torch.subprograms import amrsand as AS
+    from mara3_tpu_torch.subprograms import sand3d as S3
+    f64, f32 = torch.float64, torch.float32
+    kinds = {"b6": (T6, (3, 8), (AMR_DEPTH, AMR_BS)),
+             "b7": (T7, (3, 8), (SAND3D_DEPTH, SAND3D_BS))}
+    cpu = torch.device("cpu")
+
+    def kernel_parity(kind):
+        """Phases 24 and 28: the kernel against its plain version."""
+        T, small, full = kinds[kind]
+        err = 0.0
+        for dtype in (f64, f32):
+            worst, cases, bits = (0.0, 0.0), 0, 0
+            for depth, bs in (small, full):
+                u, tab = seeded_amr(AS, S3, BL, T6, T7, kind, depth, bs,
+                                    dtype, device, seed=depth)
+                u_copy = u.clone()
+                scale = float(u.abs().max())
+                bar = B6_F64 if kind == "b6" else dict(
+                    rtol=0.0, atol=B7_BAR["float64"] * scale)
+                for n in AMR_STEPS:
+                    got = T.advance_n_cuda(u, tab, n)
+                    torch.cuda.synchronize()
+                    e = amr_bar(got, T.advance_n_plain(u, tab, n), dtype, bar)
+                    worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+                    cases += 1
+                    bits += e[2]
+                    if (depth, bs) == full and dtype == f32:
+                        err = max(err, e[0])
+                check(torch.equal(u, u_copy), f"{kind} wrote its input")
+            print(f"{kind.upper()} parity {str(dtype)[6:]}: {cases} cases "
+                  f"pass (depth {small[0]} block {small[1]} with every face "
+                  f"case, and depth {full[0]} block {full[1]}; n in "
+                  f"{AMR_STEPS}), {bits} of them bit for bit, max |du| "
+                  f"{worst[0]:.3e} ({worst[1]:.2f} float32 ulps of its cell)")
+        return err
+
+    def timing(kind, u, tab, n_call, plain_reps):
+        """Phases 27 and 30: the kernel's one-step and n_call-step calls,
+        its marginal rate and bound, and its plain version, in turns."""
+        T, ops = (T6, B6_OPS_CELL_STEP) if kind == "b6" \
+            else (T7, B7_OPS_CELL_STEP)
+        cells = u.numel()
+        step_ms, step_plain_ms, runs1 = in_turns(
+            lambda: T.advance_n_plain(u, tab, 1),
+            lambda: T.advance_n_cuda(u, tab, 1), 5, 100)
+        call_ms, call_plain_ms, runs_n = in_turns(
+            lambda: T.advance_n_plain(u, tab, n_call),
+            lambda: T.advance_n_cuda(u, tab, n_call), plain_reps, 10)
+        rate, spread, _ = marginal_rate(
+            lambda n: T.advance_n_cuda(u, tab, n), cells, *AMR_MARGINAL)
+        bnd1 = amr_bound(u, tab, 1, ops)
+        bnd = amr_bound(u, tab, n_call, ops)
+        floor = 2 * cells * u.element_size() / HBM_BYTES_PER_S * 1e3
+        print(f"time {kind.upper()} {cells} cells float32: {step_ms:.5f} ms "
+              f"a step (one-step call) vs plain {step_plain_ms:.4f} ms (runs "
+              + " ".join(f"{r:.4f}" for r in runs1) + f"); {n_call}-step "
+              f"call {call_ms:.4f} ms ({call_ms / n_call:.5f} ms a step) vs "
+              f"plain {call_plain_ms:.4f} ms (runs " + " ".join(
+                  f"{r:.4f}" for r in runs_n) + f"); marginal "
+              f"{rate:.6e} zone-updates/s between {AMR_MARGINAL[0]} and "
+              f"{AMR_MARGINAL[1]} steps ({1e3 * cells / rate:.5f} ms a step, "
+              f"spread {spread:.3f}); bound {bnd1[0]:.5f} ms a step "
+              f"({bnd1[1]}), {bnd[0]:.5f} ms per {n_call} steps ({bnd[1]}); "
+              f"a launch-a-step design's byte floor {floor:.5f} ms a step, "
+              f"on {smi}")
+        return call_ms, call_plain_ms, bnd
+
+    def profiled(label, fn):
+        fn()
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        chunk_ms = (time.perf_counter() - c0) * 1e3
+        table, busy, launched = profile_table(fn, 1)
+        with open(profile, "a") as f:
+            f.write(f"{label}: {chunk_ms:.4f} ms wall, {busy:.1f} us of "
+                    f"kernels in {launched:.0f} launches\n{table}\n")
+        print(f"profile: {label} {chunk_ms:.4f} ms wall, kernels "
+              f"{busy / 1e3:.4f} ms in {launched:.0f} launches "
+              f"({100 * busy / 1e3 / chunk_ms:.1f}% busy)")
+
+    # ---- phase 24: B6 against its plain version ---------------------------
+    b6_err = kernel_parity("b6")
+
+    # ---- phase 25: amrsand, card against CPU -------------------------------
+    for extra in ((), ("regrid=1", "rgi=0.05")):
+        argv = ["amrsand", "depth=3", "block_size=16", "tfinal=0.25",
+                "dfi=0.1", "fast_step=1", *extra]
+        runs = [drive_amr(AS, argv, dev, f64, quiet=True)
+                for dev in (device, cpu)]
+        (card, log, _, _, calls, _), (host, *_) = runs
+        check_amr_chunks(log, "cuda_b6", 32, calls)
+        a, b = card.solution, host.solution
+        check(a.leaves == b.leaves and a.iteration == b.iteration == 32,
+              "amrsand d3b16: the card and the CPU end on other meshes")
+        check(allclose(a.conserved.cpu().numpy(), b.conserved.numpy(),
+                       **AMR_RUN),
+              "amrsand d3b16: the card's run differs from the CPU's")
+        regrids = log.count("regrid:")
+        print(f"amrsand depth=3 block_size=16 "
+              f"{' '.join(extra) or 'static mesh'} float64: 32 "
+              f"steps in {calls} B6 calls on the card match the scheme on "
+              f"the CPU (rtol {AMR_RUN['rtol']}), max |du| "
+              f"{float((a.conserved.cpu() - b.conserved).abs().max()):.3e}, "
+              f"{len(a.leaves)} blocks at the end, {regrids} regrids")
+
+    # ---- phase 26: the amrsand main path -----------------------------------
+    argv = ["amrsand", f"depth={AMR_DEPTH}", f"block_size={AMR_BS}"]
+    final, log, wall, writes, b6_launches, b7_calls = drive_amr(AS, argv,
+                                                                device)
+    s = final.solution
+    steps = round(1.0 / AS.time_step(s))
+    check(s.iteration == steps, f"amrsand ran {s.iteration} steps, not "
+                                f"{steps}")
+    check(tuple(s.conserved.shape) == (652, AMR_BS, AMR_BS, 1)
+          and s.conserved.dtype == f32 and s.conserved.is_cuda,
+          f"amrsand state {tuple(s.conserved.shape)} {s.conserved.dtype}")
+    check(bool(torch.isfinite(s.conserved).all()), "non-finite amrsand")
+    check(b7_calls == 0, "amrsand launched B7")
+    chunks = check_amr_chunks(log, "cuda_b6", steps, b6_launches)
+    check([it for it, _ in writes] == [0, steps],
+          f"diagnostics at {[it for it, _ in writes]}, not [0, {steps}]")
+    cells = s.conserved.numel()
+    print(f"amrsand main path depth={AMR_DEPTH} block_size={AMR_BS} float32: "
+          f"{s.iteration} steps in {b6_launches} B6 calls (chunks of "
+          f"{max(chunks)}; {s.iteration} kernel launches), {wall:.4f} s "
+          f"wall, the {len(writes)} diagnostics writes (a host copy and the "
+          f"finiteness test) {sum(w for _, w in writes):.4f} s of it; "
+          f"whole-run {s.iteration * cells / wall:.6e} zone-updates/s on "
+          f"{smi}")
+    s_main, u_main = s, s.conserved
+    argv_rg = argv + ["regrid=1", "rgi=0.1", "tfinal=0.3"]
+    final, log, wall, writes, calls, _ = drive_amr(AS, argv_rg, device,
+                                                   quiet=True)
+    s = final.solution
+    check(bool(torch.isfinite(s.conserved).all()), "non-finite regrid run")
+    regrids = re.findall(r"regrid: (\d+) blocks, depth (\d+), (\w+), "
+                         r"([0-9.]+) ms on the host", log)
+    check(len(regrids) >= 2, f"{len(regrids)} regrids")
+    check_amr_chunks(log, "cuda_b6", s.iteration, calls)
+    print(f"amrsand depth={AMR_DEPTH} block_size={AMR_BS} regrid=1 rgi=0.1 "
+          f"tfinal=0.3 float32: {s.iteration} steps in {calls} B6 calls, "
+          f"{wall:.4f} s wall; regrids (blocks, depth, host ms): "
+          + ", ".join(f"({b}, {d}, {ms})" for b, d, _, ms in regrids)
+          + f"; {len(s.leaves)} blocks at the end, on {smi}")
+    # the remap alone (get_cell_block per new leaf), at the first regrid
+    s0 = AS.new_solution(AS.config_template().create().update(
+        {"depth": AMR_DEPTH, "block_size": AMR_BS}))
+    host = s0.conserved.numpy()
+    new = RG.propose_leaves(s0.leaves, RG.gradient_indicator(
+        host, BL.block_dx(s0.leaves, AMR_BS)), 0.3, 0.05, AMR_DEPTH)
+    r0 = time.perf_counter()
+    RG.remap_blocks(s0.leaves, host, new)
+    remap_ms = 1e3 * (time.perf_counter() - r0)
+    print(f"amrsand regrid at depth {AMR_DEPTH}: remap_blocks (get_cell_block"
+          f" for each of {len(new)} new leaves) {remap_ms:.3f} ms on the "
+          f"host")
+
+    # ---- phase 27: B6 timing at d7b64 float32 ------------------------------
+    s = s_main
+    nt = BL.build_neighbor_table(s.leaves)
+    tab = T6.guard_tables(nt, AS.block_spacings(s), AS.time_step(s))
+    b6_ms, b6_plain_ms, b6_bnd = timing("b6", u_main, tab, 256, 1)
+    # past the L2: depth 7 with blocks of 128 (42.7 MB and its copy)
+    big, big_tab = seeded_amr(AS, S3, BL, T6, T7, "b6", AMR_DEPTH, 128, f32,
+                              device)
+    big_ms = time_ms(lambda: T6.advance_n_cuda(big, big_tab, 64), 5) / 64
+    rates = [8 * c / (ms * 1e-3) / 1e12 for c, ms in
+             ((u_main.numel(), b6_ms / 256), (big.numel(), big_ms))]
+    print(f"B6 a step: {b6_ms / 256 * 1e9 / u_main.numel():.4f} ps a cell "
+          f"({rates[0]:.3f} TB/s read and written) at block {AMR_BS} "
+          f"({u_main.numel() * 4 / 1e6:.1f} MB, in the L2 with its copy), "
+          f"{big_ms * 1e9 / big.numel():.4f} ps a cell ({rates[1]:.3f} TB/s)"
+          f" at block 128 ({big.numel() * 4 / 1e6:.1f} MB), 64-step calls, "
+          f"on {smi}")
+    del big, big_tab
+    if profile:
+        profiled(f"amrsand chunk of 256 steps at depth {AMR_DEPTH} block "
+                 f"{AMR_BS} float32 (B6)", lambda: AS.advance_n(
+                     u_main, AS.block_spacings(s), nt, AS.time_step(s), 256))
+
+    # ---- phase 28: B7 against its plain version ---------------------------
+    b7_err = kernel_parity("b7")
+
+    # ---- phase 29: sand3d, card against CPU --------------------------------
+    argv = ["sand3d", "depth=3", "block_size=8", "tfinal=0.1", "dfi=0.05"]
+    (card, log, _, _, _, calls), (host, *_) = [
+        drive_amr(S3, argv, dev, f64, quiet=True) for dev in (device, cpu)]
+    check_amr_chunks(log, "cuda_b7", card.solution.iteration, calls)
+    a, b = card.solution.conserved.cpu(), host.solution.conserved
+    scale = float(b.abs().max())
+    check(allclose(a.numpy(), b.numpy(), 0.0, 1e-12 * scale),
+          "sand3d d3b8: the card's run differs from the CPU's")
+    print(f"sand3d depth=3 block_size=8 float64: {card.solution.iteration} "
+          f"steps in {calls} B7 calls on the card match the scheme on the "
+          f"CPU (atol 1e-12 x max |u|), max |du| "
+          f"{float((a - b).abs().max()):.3e}")
+
+    # ---- phase 30: the sand3d main path, and B7 timing ---------------------
+    argv = ["sand3d", f"depth={SAND3D_DEPTH}", f"block_size={SAND3D_BS}",
+            "tfinal=1.0"]
+    final, log, wall, writes, b6_calls, b7_launches = drive_amr(S3, argv,
+                                                                device)
+    s = final.solution
+    steps = round(1.0 / S3.time_step(final.mesh, SAND3D_BS))
+    check(s.iteration == steps, f"sand3d ran {s.iteration} steps, not "
+                                f"{steps}")
+    check(tuple(s.conserved.shape) == (344,) + (SAND3D_BS,) * 3
+          and s.conserved.dtype == f32 and s.conserved.is_cuda,
+          f"sand3d state {tuple(s.conserved.shape)} {s.conserved.dtype}")
+    check(bool(torch.isfinite(s.conserved).all()), "non-finite sand3d")
+    check(b6_calls == 0, "sand3d launched B6")
+    check_amr_chunks(log, "cuda_b7", steps, b7_launches)
+    check([it for it, _ in writes] == [0, steps],
+          f"diagnostics at {[it for it, _ in writes]}, not [0, {steps}]")
+    cells = s.conserved.numel()
+    print(f"sand3d main path depth={SAND3D_DEPTH} block_size={SAND3D_BS} "
+          f"tfinal=1.0 float32: {s.iteration} steps in {b7_launches} B7 "
+          f"calls, {wall:.4f} s wall, the {len(writes)} diagnostics writes "
+          f"{sum(w for _, w in writes):.4f} s of it; whole-run "
+          f"{s.iteration * cells / wall:.6e} zone-updates/s on {smi}")
+    mesh = final.mesh
+    tab = T7.guard_tables(mesh, S3.block_spacings(mesh, SAND3D_BS, f32,
+                                                  device),
+                          S3.VELOCITY, S3.time_step(mesh, SAND3D_BS))
+    b7_ms, b7_plain_ms, b7_bnd = timing("b7", s.conserved, tab, steps, 1)
+    if profile:
+        profiled(f"sand3d call of {steps} steps at depth {SAND3D_DEPTH} "
+                 f"block {SAND3D_BS} float32 (B7)",
+                 lambda: T7.advance_n_cuda(s.conserved, tab, steps))
+
+    return [
+        {"name": "amrsand_step (B6)", "route": "cuda",
+         "source": "mara3_tpu_torch/csrc/amrsand_step.cu",
+         "replaces": "mara3_tpu/kernels/amrsand_step.py:118",
+         "launches": b6_launches, "max_abs_err": b6_err, "ms": b6_ms,
+         "plain_ms": b6_plain_ms, "bound_ms": b6_bnd[0],
+         "bound_by": b6_bnd[1], "library_ms": None},
+        {"name": "sand3d_step (B7)", "route": "cuda",
+         "source": "mara3_tpu_torch/csrc/sand3d_step.cu",
+         "replaces": "mara3_tpu/kernels/sand3d_step.py:177",
+         "launches": b7_launches, "max_abs_err": b7_err, "ms": b7_ms,
+         "plain_ms": b7_plain_ms, "bound_ms": b7_bnd[0],
+         "bound_by": b7_bnd[1], "library_ms": None}]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -1277,7 +1708,7 @@ def main(argv=None) -> int:
     from mara3_tpu_torch.kernels import srhd_recover as TREC
     from mara3_tpu_torch.subprograms import sedov as SD
     sources = ("binary_advance", "binary_multi", "iso2d_step", "sedov_step",
-               "cloud_update")
+               "cloud_update", "amrsand_step", "sand3d_step")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -1814,6 +2245,7 @@ def main(argv=None) -> int:
               f"({100 * busy / 1e3 / chunk_ms:.1f}% busy)")
 
     b4 = cloud_phases(device, smi, args.profile)
+    b67 = amr_phases(device, smi, args.profile)
 
     print(json.dumps({"kernels": [
         {"name": "binary_advance (B2)", "route": "cuda",
@@ -1839,7 +2271,7 @@ def main(argv=None) -> int:
          "replaces": "mara3_tpu/kernels/sedov_step.py:250",
          "launches": b5_launches, "max_abs_err": b5_err,
          "ms": b5_ms, "plain_ms": b5_plain_ms, "bound_ms": b5_bnd[0],
-         "bound_by": b5_bnd[1], "library_ms": None}, *b4]}))
+         "bound_by": b5_bnd[1], "library_ms": None}, *b4, *b67]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -10,6 +10,7 @@ common parts are factored once:
 - numbered checkpoints with solution/schedule/run_config groups
   (reference subprog_boilerplate.cpp:201-210)
 - the ``[iter] t=... kzps=...`` line of a per-step loop
+- the finiteness test of a run's state at each write and at its end
 
 h5py is imported only by the functions that open a file, so a run that
 writes no checkpoint needs no h5py.
@@ -18,6 +19,9 @@ writes no checkpoint needs no h5py.
 from __future__ import annotations
 
 import os
+
+import numpy as np
+import torch
 
 from mara3_tpu_torch.app import serialize
 from mara3_tpu_torch.app.config import Config, ConfigTemplate, argv_to_string_map
@@ -80,3 +84,22 @@ def print_run_loop_message(iteration: int, time: float, total_zones: int,
     """The per-step line of a host loop: ``[iter] t=... kzps=...``."""
     rate = total_zones / max(execution_time_ms, 1e-12)
     print(f"[{iteration:04d}] t={time:3.7f} kzps={rate:3.2f}")
+
+
+class NonFiniteState(RuntimeError):
+    """A run reached a state that is not finite."""
+
+
+def check_finite(subprogram: str, values, iteration: int, time: float):
+    """Raise NonFiniteState, naming the subprogram, the iteration and the
+    time, unless every one of `values` is finite. A writer passes the host
+    copy it has made; a tensor on the card is reduced there and one flag
+    read back."""
+    def finite(v):
+        if isinstance(v, torch.Tensor):
+            return bool(torch.isfinite(v).all())
+        return bool(np.isfinite(np.asarray(v)).all())
+
+    if not all(finite(v) for v in values):
+        raise NonFiniteState(f"{subprogram}: the state is not finite at "
+                             f"iteration {iteration}, t = {time!r}")

@@ -15,7 +15,7 @@ from typing import Callable, Dict
 _REGISTRY: Dict[str, Callable] = {}
 
 # the subprograms this package has ported so far
-_SUBPROGRAMS = ("binary", "cloud", "kh", "sedov")
+_SUBPROGRAMS = ("amrsand", "binary", "cloud", "kh", "sand3d", "sedov")
 
 
 def register(name: str):

@@ -7,9 +7,10 @@
 // for operation: per step, 1/dv times U, primitive recovery (Euler's, or the
 // SRHD Newton warm-started from the previous step's pressure), pcm, plm or
 // weno5 face states with a reflecting inner guard and zero-gradient outer
-// guards (and the TPU kernel's own stencil for weno5's right state at the
-// outer face), HLLE at the nr + 1 faces, the spherical source and the
-// update u + (-(F[r+1] dA[r+1] - F[r] dA[r]) + s dv) dt.
+// guards (at the outer face too, where the TPU kernel reads cells nr-1,
+// nr-1, nr-1, nr-2, nr-3 for weno5's right state), HLLE at the nr + 1
+// faces, the spherical source and the update
+// u + (-(F[r+1] dA[r+1] - F[r] dA[r]) + s dv) dt.
 //
 // Bound: a call of n steps need only read the state and the vertices once
 // and write the state once: 10 float32 values and a float64 vertex a cell,
@@ -228,12 +229,8 @@ step_kernel(const T* __restrict__ src, T* __restrict__ dst,
       } else {
         L[q] = weno5_left(cell(q, f - 3), cell(q, f - 2), cell(q, f - 1),
                           cell(q, f), cell(q, f + 1));
-        // the outer face's right state: the TPU kernel's stencil
-        R[q] = f < nr ? weno5_left(cell(q, f + 2), cell(q, f + 1),
-                                   cell(q, f), cell(q, f - 1), cell(q, f - 2))
-                      : weno5_left(cell(q, nr - 1), cell(q, nr - 1),
-                                   cell(q, nr - 1), cell(q, nr - 2),
-                                   cell(q, nr - 3));
+        R[q] = weno5_left(cell(q, f + 2), cell(q, f + 1), cell(q, f),
+                          cell(q, f - 1), cell(q, f - 2));
       }
     }
     if (METHOD == 3 && (L[0] <= T(0) || L[4] <= T(0) || R[0] <= T(0)

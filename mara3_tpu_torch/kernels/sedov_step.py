@@ -15,18 +15,18 @@ The arithmetic is the TPU kernel's, which is not quite the scheme's
 (subprograms/sedov._step): 1/dv is taken once and multiplied in; the
 geometry (dv, r0^2, r1^2, rc) is formed from the vertices in their dtype and
 then cast to the state's, as is dt; SRHD recovers by the reciprocal-first
-Newton. Two more places where it departs from the scheme, both the TPU
-kernel's and copied as they are:
+Newton. One more place where it departs from the scheme, the TPU
+kernel's and copied as it is: the warm start (warm=True). Each step's Newton
+starts from the pressure the previous step converged to, and the first step
+of every call from 0, so results depend on how a run is cut into calls (by
+less than the Newton's stopping tolerance).
 
-- warm start (warm=True): each step's Newton starts from the pressure the
-  previous step converged to, and the first step of every call from 0, so
-  results depend on how a run is cut into calls (by less than the Newton's
-  stopping tolerance);
-- the weno5 right state at the outer face nr is reconstructed from the
-  cells (nr-1, nr-1, nr-1, nr-2, nr-3) where the scheme's zero-gradient
-  guards give (nr-1, nr-1, nr-1, nr-1, nr-2). The two agree while the
-  outer three cells are equal, as they are in every sedov run until the
-  blast reaches the edge.
+One place where the TPU kernel departs from the scheme is not copied: it
+reconstructs weno5's right state at the outer face nr from the cells
+(nr-1, nr-1, nr-1, nr-2, nr-3) (mara3_tpu/kernels/sedov_step.py:221-222).
+This kernel uses the scheme's zero-gradient stencil, (nr-1, nr-1, nr-1,
+nr-1, nr-2), so it agrees with the JAX B5 only while the outer three cells
+are equal, as they are in every sedov run until the blast reaches the edge.
 
 - `advance_n_plain` is the plain PyTorch version;
 - `advance_n_cuda` is the kernel's wrapper (csrc/sedov_step.cu: one launch
@@ -54,7 +54,7 @@ from mara3_tpu_torch.physics import euler, srhd
 
 METHODS = ("pcm", "plm", "weno5")
 SYSTEMS = ("euler", "srhd")
-MIN_CELLS = 3     # weno5's outer face reads cells nr-1, nr-2 and nr-3
+MIN_CELLS = 3     # the mirrored inner guards are the first three cells
 _REFL = (1.0, -1.0, 1.0, 1.0, 1.0)
 _NHAT = (1.0, 0.0, 0.0)
 _GUARDS = 3
@@ -99,8 +99,8 @@ def _check_args(u, vertices, n, reconstruct, system, gamma):
 # -----------------------------------------------------------------------------
 
 def _face_states(Pt, reconstruct, theta):
-    """(L, R) 5-tuples at the nr + 1 faces (the TPU kernel's face rows plus
-    its separate outer face)."""
+    """(L, R) 5-tuples at the nr + 1 faces, every face through the
+    scheme's guards."""
     nr = Pt[0].shape[0]
     Ls, Rs = [], []
     for c, sgn in zip(Pt, _REFL):
@@ -124,9 +124,6 @@ def _face_states(Pt, reconstruct, theta):
                             cells(1))
             R = _weno5_left(cells(2), cells(1), cells(0), cells(-1),
                             cells(-2))
-            # the outer face: the TPU kernel's stencil (module docstring)
-            R_out = _weno5_left(c[-1:], c[-1:], c[-1:], c[-2:-1], c[-3:-2])
-            R = torch.cat([R[:-1], R_out])
         Ls.append(L)
         Rs.append(R)
     if reconstruct == "weno5":

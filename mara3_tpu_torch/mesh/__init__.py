@@ -1,1 +1,2 @@
-"""Quadtree AMR mesh: host tree and the dense block layout."""
+"""AMR meshes: the host quadtree and octree, their dense block layouts,
+prolongation and restriction, and regridding."""

@@ -1,11 +1,13 @@
-"""Dense device layout for the static quadtree: neighbor tables and the
-guard exchange as one indexed gather.
+"""Dense device layout for the static quadtree: neighbor tables, the guard
+exchange, and the host-side single-block fetch.
 
 Port of mara3_tpu/mesh/block_layout.py. The reference's recursive per-leaf
 guard fetch (mara::get_cell_block, mesh_tree_operators.hpp:223-252:
 same-level leaf, or prolong from parent, or combine+coarsen children)
-becomes host-built static tables and one gather over a
-[num_blocks, bs, bs, ncomp] tensor.
+becomes host-built static tables and gathers over a
+[num_blocks, bs, bs, ncomp] tensor: `extend_blocks` (three candidate strips
+and a select, any width; amrsand's scheme) and `extend_blocks_fast` (one
+gather and a weighted sum, width 1; the plain versions of B2 and B3).
 
 A 2:1-balanced tree guarantees each face sees exactly one of three cases:
   0 = same-level neighbor        (copy its edge strip)
@@ -25,6 +27,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from mara3_tpu_torch.mesh import prolong_restrict as pr
 from mara3_tpu_torch.mesh import tree as treemod
 from mara3_tpu_torch.mesh.tree import TreeIndex
 
@@ -117,6 +120,118 @@ def block_dx(leaves: Sequence[TreeIndex], bs: int,
     """[B] cell size per block (square cells)."""
     return np.array([treemod.block_extent(leaf)[2] / bs for leaf in leaves],
                     dtype)
+
+
+# -----------------------------------------------------------------------------
+# guard exchange as three candidate strips and a select (any width g)
+# -----------------------------------------------------------------------------
+
+def _edge(Ug, axis: int, edge_side: int, w: int):
+    """Edge strip of width w on `axis` of gathered blocks Ug [B, n, n, C]."""
+    n = Ug.shape[1 + axis]
+    return Ug.narrow(1 + axis, 0 if edge_side == 0 else n - w, w)
+
+
+def _restrict2(a, axis: int):
+    index0 = [slice(None)] * a.dim()
+    index1 = [slice(None)] * a.dim()
+    index0[axis] = slice(0, None, 2)
+    index1[axis] = slice(1, None, 2)
+    return 0.5 * (a[tuple(index0)] + a[tuple(index1)])
+
+
+def guard_strip(U, nt: NeighborTable, axis: int, side: int, g: int):
+    """The [B, g, n, C]-shaped (axis-0 convention; transposed for axis 1)
+    guard strip outside face (axis, side) of every block, with level
+    transitions handled by piecewise-constant prolongation / 2x2 averaging
+    (reference restrict_cells/prolong_cells, mesh_prolong_restrict.hpp).
+    The fine case pairs along the face normal first, then along the face,
+    as the JAX package's does (not in GuardGather's slot order)."""
+    f = 2 * axis + side
+    n = U.shape[1]
+    perp = 1 - axis
+    neighbor_edge_side = 1 - side
+    dev = U.device
+
+    def ids(a):
+        return torch.as_tensor(a, dtype=torch.int64, device=dev)
+
+    bcast = (slice(None),) + (None,) * (U.dim() - 1)
+    case = ids(nt.case[:, f])[bcast]
+
+    # case 0: same level
+    same = _edge(U[ids(nt.same_id[:, f])], axis, neighbor_edge_side, g)
+
+    # case 1: coarser neighbor: width ceil(g/2) edge, half along perp,
+    # prolonged 2x in both directions, trimmed to g nearest the interface
+    cw = (g + 1) // 2
+    ce = _edge(U[ids(nt.coarse_id[:, f])], axis, neighbor_edge_side, cw)
+    half = ids(nt.coarse_half[:, f])[bcast]
+    lo = _edge(ce, perp, 0, n // 2)
+    hi = _edge(ce, perp, 1, n // 2)
+    chalf = torch.where(half == 0, lo, hi)
+    cp = torch.repeat_interleave(
+        torch.repeat_interleave(chalf, 2, dim=1 + axis), 2, dim=1 + perp)
+    coarse = _edge(cp, axis, neighbor_edge_side, g)
+
+    # case 2: two finer neighbors: width 2g edges, 2x2-averaged, stacked
+    # along perp in perpendicular-coordinate order
+    fa = _edge(U[ids(nt.fine_id[:, f, 0])], axis, neighbor_edge_side, 2 * g)
+    fb = _edge(U[ids(nt.fine_id[:, f, 1])], axis, neighbor_edge_side, 2 * g)
+    fa = _restrict2(_restrict2(fa, 1 + axis), 1 + perp)
+    fb = _restrict2(_restrict2(fb, 1 + axis), 1 + perp)
+    fine = torch.cat([fa, fb], dim=1 + perp)
+
+    return torch.where(case == 0, same, torch.where(case == 1, coarse, fine))
+
+
+def extend_blocks(U, nt: NeighborTable, axis: int, g: int = 1):
+    """All blocks extended by g guard cells on both sides of `axis`
+    (the reference's per-leaf extend, subprog_amrsand.cpp:253-261 /
+    subprog_binary_scheme.cpp:132-142, as one gather program)."""
+    lo = guard_strip(U, nt, axis, 0, g)
+    hi = guard_strip(U, nt, axis, 1, g)
+    return torch.cat([lo, U, hi], dim=1 + axis)
+
+
+# -----------------------------------------------------------------------------
+# host-side single-block fetch (API parity with mara::get_cell_block /
+# get_vertex_block, mesh_tree_operators.hpp:223-292): one tree node's data
+# at its own resolution, for the regrid's remap and for analysis; the hot
+# path uses the vectorized exchanges instead.
+# -----------------------------------------------------------------------------
+
+def get_cell_block(leaves, blocks, index):
+    """Cell data of the tree node `index` at its own resolution: the leaf
+    itself, a prolonged quadrant of a coarser leaf, or the combined and
+    coarsened four children. `blocks` is the dense [B, bs, bs, ...] tensor
+    aligned with `leaves`."""
+    order = {leaf: b for b, leaf in enumerate(leaves)}
+    if index in order:
+        return blocks[order[index]]
+    parent = treemod.parent(index)
+    if index[0] > 0 and parent in order:
+        kids = pr.refine_cells_2d(blocks[order[parent]])
+        level, i, j = index
+        return kids[(i & 1) + 2 * (j & 1)]
+    children_blocks = [get_cell_block(leaves, blocks, c)
+                       for c in treemod.children(index)]
+    return pr.coarsen_cells_2d(pr.combine_cells_2d(children_blocks))
+
+
+def get_vertex_block(leaves, vertex_blocks, index):
+    """Vertex-flavored analog of get_cell_block."""
+    order = {leaf: b for b, leaf in enumerate(leaves)}
+    if index in order:
+        return vertex_blocks[order[index]]
+    parent = treemod.parent(index)
+    if index[0] > 0 and parent in order:
+        kids = pr.refine_verts_2d(vertex_blocks[order[parent]])
+        level, i, j = index
+        return kids[(i & 1) + 2 * (j & 1)]
+    children_blocks = [get_vertex_block(leaves, vertex_blocks, c)
+                       for c in treemod.children(index)]
+    return pr.coarsen_verts_2d(pr.combine_verts_2d(children_blocks))
 
 
 # -----------------------------------------------------------------------------

@@ -123,8 +123,9 @@ def resolve_options(cfg, device):
     options this port does not run yet."""
     if cfg.get_int("regrid") != 0:
         raise NotImplementedError(
-            "regrid=1 (adaptive regridding) is not ported yet: ROADMAP.md "
-            "queue A item 3 (mesh/regrid.py with prolong_restrict.py)")
+            "regrid=1 (adaptive regridding) is not ported yet in binary: "
+            "ROADMAP.md queue A item A3-b (mesh/regrid.py is ported; both "
+            "loops and B3's tables must follow a regrid)")
     fast = cfg.get_int("fast_step")
     if fast < 0:
         fast = int(torch.device(device).type == "cuda")
@@ -407,7 +408,10 @@ def advance(solution: Solution, sd: SolverData, dt: float,
         # report the worst cell like the reference's validate_u printout
         # (subprog_binary_scheme.cpp:726-744)
         sig = u1[..., 0].cpu().numpy()
-        b, i, j = np.unravel_index(np.nanargmin(sig), sig.shape)
+        # a NaN density counts as the worst (np.nanargmin raises when the
+        # whole state is NaN)
+        b, i, j = np.unravel_index(
+            np.argmin(np.where(np.isnan(sig), -np.inf, sig)), sig.shape)
         x, y = sd.geometry[0][b, i, j]
         print(f"negative density {sig[b, i, j]:3.2e} "
               f"(at position [{x:+3.2f} {y:+3.2f}])")
@@ -717,8 +721,14 @@ class State:
     run_config: object
 
 
+def check_finite(s: Solution):
+    """Raise driver.NonFiniteState unless the state is finite."""
+    driver.check_finite("binary", [s.conserved], s.iteration, s.time)
+
+
 def write_checkpoint(state: State, sd: SolverData) -> State:
     import h5py
+    check_finite(state.solution)
     count = state.schedule.num_times_performed("write_checkpoint")
     state = replace(
         state, schedule=state.schedule.mark_as_completed("write_checkpoint"))
@@ -739,6 +749,7 @@ def write_checkpoint(state: State, sd: SolverData) -> State:
 
 def write_diagnostics(state: State, sd: SolverData) -> State:
     import h5py
+    check_finite(state.solution)
     count = state.schedule.num_times_performed("write_diagnostics")
     outdir = state.run_config.get_string("outdir")
     path = serialize.create_numbered_filename("diagnostics", count, "h5",
@@ -841,10 +852,13 @@ def run(cfg, sd: SolverData, state: State, tasks=run_tasks) -> State:
     `tasks(state, sd)` for the checkpoints, diagnostics and time series.
     fast_step=1 runs the device-resident loop (_main_fast); fast_step=0 the
     reference's loop (subprog_binary.cpp:394-449), with the tasks after
-    every step. Returns the final state."""
+    every step. Returns the final state; raises driver.NonFiniteState if a
+    write or the end finds the state not finite."""
     state = tasks(state, sd)
     if cfg.get_int("fast_step"):
-        return _main_fast(cfg, sd, state, tasks)
+        final = _main_fast(cfg, sd, state, tasks)
+        check_finite(final.solution)
+        return final
     from mara3_tpu_torch.app.performance import time_execution
     bs = cfg.get_int("block_size")
     while state.solution.time / (2 * math.pi) < cfg.get_double("tfinal"):
@@ -855,7 +869,9 @@ def run(cfg, sd: SolverData, state: State, tasks=run_tasks) -> State:
         print(f"[{state.solution.iteration:04d}] "
               f"orbits={state.solution.time / (2 * math.pi):3.7f} "
               f"kzps={rate:3.2f}")
-    return tasks(next_state(state, sd), sd)
+    final = tasks(next_state(state, sd), sd)
+    check_finite(final.solution)
+    return final
 
 
 # chunk lengths of the fast loop, longest first

@@ -594,9 +594,12 @@ def make_diagnostic_fields(state: Solution, cfg):
     entropy = srhd.specific_entropy(P, GAMMA_LAW_INDEX)
     F = srhd.flux(P, (1.0, 0.0, 0.0), GAMMA_LAW_INDEX)
 
-    # per-theta columns: the locators batched over the polar axis
+    # per-theta columns: the locators batched over the polar axis. The
+    # fields in erg and erg/s are formed in float64: units.power and
+    # units.energy are of order 1e52, past float32's range
+    f64 = torch.float64
     Aj_mid = ops.midpoint_on_axis(dAr, 0)              # [Nr, Nq]
-    Lj = F[..., 4] * Aj_mid * units.power              # radial energy flow
+    Lj = F[..., 4].to(f64) * Aj_mid.to(f64) * units.power   # energy flow
 
     def col(a):                                        # [Nq, Nr]
         return a.transpose(0, 1)
@@ -626,13 +629,14 @@ def make_diagnostic_fields(state: Solution, cfg):
         "gas_pressure": P[..., 4] * units.energy_density,
         "specific_entropy": entropy,
         "radial_gamma_beta": P[..., 1],
-        "radial_energy_flow": F[..., 4] * dAr[:-1, :] * units.power,
+        "radial_energy_flow": F[..., 4].to(f64) * dAr[:-1, :].to(f64)
+                              * units.power,
         "radial_vertices": rv * units.length,
         "polar_vertices": qv,
         "solid_angle_at_theta": ops.div_scalar(dAr[0, :],
                                                float(rv[0]) ** 2),
         "total_energy_at_theta": torch.sum(state.conserved[..., 4], dim=0)
-                                 * units.energy,
+                                 .to(f64) * units.energy,
         "shock_midpoint_radius": rc[midpoint] * units.length,
         "shock_upstream_radius": rc[upstream] * units.length,
         "shock_pressure_radius": rc[pressure] * units.length,
@@ -659,11 +663,17 @@ class State:
     schedule: Schedule
 
 
+def check_finite(s: Solution):
+    """Raise driver.NonFiniteState unless the state is finite."""
+    driver.check_finite("cloud", [s.conserved], s.iteration, s.time)
+
+
 def write_checkpoint(state: State, cfg) -> State:
     """chkpt.NNNN.h5 with the solution, the schedule (counted after this
     checkpoint, so a restart continues the numbering), run_config and its
     "config" alias."""
     import h5py
+    check_finite(state.solution)
     count = state.schedule.num_times_performed("write_checkpoint")
     schedule = state.schedule.mark_as_completed("write_checkpoint")
     path = driver.checkpoint_path(cfg, count)
@@ -678,6 +688,7 @@ def write_checkpoint(state: State, cfg) -> State:
 
 def write_diagnostics(state: State, cfg) -> State:
     import h5py
+    check_finite(state.solution)
     count = state.schedule.num_times_performed("write_diagnostics")
     path = serialize.create_numbered_filename("diagnostics", count, "h5",
                                               cfg.get_string("outdir"))
@@ -874,11 +885,15 @@ def _run_per_step(cfg, state: State, tasks) -> State:
 def run(cfg, state: State, tasks=run_tasks) -> State:
     """The run after its initial tasks, through the loop fast_step picks,
     with `tasks(state, cfg)` for the checkpoints and diagnostics; returns
-    the final state."""
+    the final state. Raises driver.NonFiniteState if a write or the end
+    finds the state not finite."""
     state = tasks(state, cfg)
     if resolve_fast_step(cfg, state.solution.conserved.device):
-        return _run_fast(cfg, state, tasks)
-    return _run_per_step(cfg, state, tasks)
+        final = _run_fast(cfg, state, tasks)
+    else:
+        final = _run_per_step(cfg, state, tasks)
+    check_finite(final.solution)
+    return final
 
 
 @register("cloud")

@@ -264,6 +264,7 @@ def write_checkpoint(state: State, cfg) -> State:
     schedule = state.schedule.mark_as_completed("write_checkpoint")
     path = driver.checkpoint_path(cfg, count)
     s = state.solution
+    driver.check_finite("kh", [s.conserved], s.iteration, s.time)
 
     def write_solution(group):
         group["iteration"] = np.int64(s.iteration)
@@ -281,6 +282,8 @@ def write_diagnostics(state: State, cfg) -> State:
     path = serialize.create_numbered_filename("diagnostics", count, "h5",
                                               cfg.get_string("outdir"))
     u = state.solution.conserved.detach().cpu().numpy().astype(np.float64)
+    driver.check_finite("kh", [u], state.solution.iteration,
+                        state.solution.time)
     with h5py.File(path, "w") as f:
         f["time"] = np.float64(state.solution.time)
         f["sigma"] = u[..., 0]
@@ -386,7 +389,9 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     """The driver loop until tfinal, with `tasks(state, cfg)` for the
     checkpoints, diagnostics and time series: each chunk of steps lands
     exactly on the next scheduled output (or tfinal) and is one call of
-    advance_n. Prints kzps per chunk; returns the final state."""
+    advance_n. Prints kzps per chunk; returns the final state. Raises
+    driver.NonFiniteState if a write or the end finds the state not
+    finite."""
     s = state.solution
     n = cfg.get_int("N")
     kw = advance_kwargs(cfg, s.dt)
@@ -418,7 +423,10 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
         state = State(s, mark_tasks(state.schedule, s.time + eps, intervals))
         print(f"[{s.iteration:04d}] t={s.time:3.7f} "
               f"kzps={n_run * n * n / max(ms, 1e-9):3.2f} [{LAST_PATH}]")
-    return tasks(state, cfg)
+    final = tasks(state, cfg)
+    s = final.solution
+    driver.check_finite("kh", [s.conserved], s.iteration, s.time)
+    return final
 
 
 @register("kh")

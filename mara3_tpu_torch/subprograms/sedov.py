@@ -394,11 +394,17 @@ class State:
     schedule: Schedule
 
 
+def check_finite(s: Solution):
+    """Raise driver.NonFiniteState unless the state is finite."""
+    driver.check_finite("sedov", [s.conserved], s.iteration, s.time)
+
+
 def write_checkpoint(state: State, cfg) -> State:
     """chkpt.NNNN.h5 with the solution, the schedule (counted after this
     checkpoint, so a restart continues the numbering), run_config and its
     "config" alias (the reference's plotting tools read "config")."""
     import h5py
+    check_finite(state.solution)
     count = state.schedule.num_times_performed("write_checkpoint")
     schedule = state.schedule.mark_as_completed("write_checkpoint")
     path = driver.checkpoint_path(cfg, count)
@@ -413,6 +419,7 @@ def write_checkpoint(state: State, cfg) -> State:
 
 def write_diagnostics(state: State, cfg) -> State:
     import h5py
+    check_finite(state.solution)
     system = hydro_system(cfg)
     count = state.schedule.num_times_performed("write_diagnostics")
     path = serialize.create_numbered_filename("diagnostics", count, "h5",
@@ -583,11 +590,15 @@ def _run_per_step(cfg, state: State, tasks) -> State:
 def run(cfg, state: State, tasks=run_tasks) -> State:
     """The run after its initial tasks, through the loop fast_step picks,
     with `tasks(state, cfg)` for the checkpoints, diagnostics and time
-    series; returns the final state."""
+    series; returns the final state. Raises driver.NonFiniteState if a
+    write or the end finds the state not finite."""
     state = tasks(state, cfg)
     if resolve_fast_step(cfg, state.solution.conserved.device):
-        return _run_fast(cfg, state, tasks)
-    return _run_per_step(cfg, state, tasks)
+        final = _run_fast(cfg, state, tasks)
+    else:
+        final = _run_per_step(cfg, state, tasks)
+    check_finite(final.solution)
+    return final
 
 
 @register("sedov")

@@ -231,9 +231,10 @@ def test_ported_options_resolve(option, key, value):
 def test_no_jax_in_the_port():
     """Importing the port and running a step, the per-step scan and the
     multi-step scan (kernel B3's plain version), a sedov SRHD step of
-    kernel B5's plain version, and two cloud steps of kernel B4d's plain
-    version, loads neither jax nor the JAX package, and no source file of
-    the port imports them."""
+    kernel B5's plain version, two cloud steps of kernel B4d's plain
+    version, and two amrsand and two sand3d steps of kernels B6's and B7's
+    plain versions, loads neither jax nor the JAX package, and no source
+    file of the port imports them."""
     code = (
         "import sys, torch\n"
         "from mara3_tpu_torch.subprograms import binary as B\n"
@@ -262,6 +263,20 @@ def test_no_jax_in_the_port():
         " c.polar_vertices, C.jet_static(C.config_template().create()),"
         " 1e-3, 1.2, 2, 1e-8, 2, kernel=True)\n"
         "assert C.LAST_PATH == 'plain_b4d_rk2[2]', C.LAST_PATH\n"
+        "from mara3_tpu_torch.subprograms import amrsand as A\n"
+        "from mara3_tpu_torch.mesh import block_layout as BL\n"
+        "a = A.new_solution(A.config_template().create().update("
+        "{'depth': 2, 'block_size': 4}))\n"
+        "A.advance_n(a.conserved, A.block_spacings(a),"
+        " BL.build_neighbor_table(a.leaves), A.time_step(a), 2, kernel=True)\n"
+        "assert A.LAST_PATH == 'plain_b6[2]', A.LAST_PATH\n"
+        "from mara3_tpu_torch.subprograms import sand3d as S3\n"
+        "m = S3.build_mesh(S3.config_template().create().update("
+        "{'depth': 1}))\n"
+        "g = S3.new_solution(S3.config_template().create().update("
+        "{'block_size': 4}), m)\n"
+        "S3.make_advance_auto(m, 4, S3.VELOCITY, 1)(g.conserved, 1e-3, 2)\n"
+        "assert S3.LAST_PATH == 'plain_b7[2]', S3.LAST_PATH\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mara3_tpu' or m.startswith('mara3_tpu.')]\n"
         "assert not bad, bad\n"
