@@ -9,7 +9,8 @@ exits non-zero and prints no result):
    limit;
 2. build: compiles mara3_tpu_torch/csrc/binary_advance.cu (kernel B2),
    binary_multi.cu (B3), iso2d_step.cu (B1), sedov_step.cu (B5),
-   cloud_update.cu (B4), amrsand_step.cu (B6) and sand3d_step.cu (B7), one
+   cloud_update.cu (B4), amrsand_step.cu (B6), sand3d_step.cu (B7),
+   binary_update.cu (B11a, B11b) and binary_advance_strips.cu (B11c), one
    nvcc each, started together;
 3. B2 parity: kernel B2 against its plain PyTorch version on the card, at
    depth 3 / block 16 over {conserve_linear_p} x {hlle, hllc} x {plm, pcm}
@@ -122,6 +123,28 @@ exits non-zero and prints no result):
    blocks of 16^3, float32, 384 steps in one B7 call) through
    sand3d.setup() and sand3d.run(); then B7's timing as in phase 27, the
    call being the main path's 384 steps;
+31. B11 parity: kernels B11a and B11b (the "split" advance) and B11c (the
+   "jnp_strips" advance) against their plain versions on the inputs of
+   their scheme fronts, at depth 3 / block 16 over {conserve_linear_p} x
+   {plm, pcm} (x {hlle, hllc} for B11c) and at d6b96, float64 at the CPU
+   bars and float32 at 64 ulps of each cell; then each timed against its
+   plain version at d6b96 float32, beside its bound;
+32. the variant path: make_advance(fused=v) at d6b96 float32 for v in True,
+   "jnp_strips", "split" and False: one advance of each against fused=False
+   (64 ulps of each cell), the kernels each launches, and
+   benchmarks/bench_flagship.py's marginal rate (5 and 45 advances, the
+   bodies and dt on the device), every B11 launch counted;
+33. regrid, card against CPU: ``binary depth=4 block_size=8 regrid=1
+   rgi=0.01 tfinal=0.03`` in float64 through both loops (fast_step=0 with
+   B2; fast_step=1 multi_launch=4 with B3): the same final leaves, the
+   state at the CPU bars;
+34. regrid at full width: ``binary depth=6 block_size=96 regrid=1
+   focus_factor=0.5`` on the main path (fast_step=1, multi_launch=16),
+   tfinal and rgi 17 and 3 times the first step's dt: the run starts on 4
+   blocks and the regrids refine it toward the flagship's 136 (at the
+   default focus no regrid after t = 0 changes the tree). Each regrid's blocks and host time, the B3 launches between
+   regrids, the whole-run rate and the finite end; at least two regrids
+   must change the tree;
 
 then prints one JSON line describing the kernels and, last, the ok line.
 ``--profile PATH`` also writes torch.profiler tables of a d6b96 B2 advance,
@@ -358,6 +381,59 @@ B7_BAR = {"float64": 1e-13, "float32": 5e-6}
 AMR_RUN = dict(rtol=1e-12, atol=1e-14)
 
 
+# Kernels B11a-c (csrc/binary_update.cu and csrc/binary_advance_strips.cu,
+# with csrc/binary_tpu_flux.cuh), counted the same way for the main path's
+# configuration (PLM, HLLE, conserve_linear_p=1, alpha viscosity without a
+# cutoff):
+#   face_flux_tpu 107 a face (the half face 1, face states 12, cs2_at 18, r
+#                 4, nu 5, mu 3, cs 1, conserved states 4, pressures 2,
+#                 physical fluxes 8, wave speeds 8, B11a's HLLE 24: 1 / (ap -
+#                 am) 2, ap am 1, 7 a component; viscous stress 14, face
+#                 length 3); B11c's HLLE divides (25), so 108, and forms the
+#                 face's position (6): 114
+#   update_cell   120 a cell (gravity and sinks 48, buffer and floor 29, the
+#                 update 12, totals 31), after the divergence (9)
+#   B11c also     slopes 108 a cell (as B2), the position 6, the buffer
+#                 rate 10, dA 1
+# Bytes, each input read once and each output written once: B11a (both
+# axes, as an advance launches it) the extended p, g_lon and g_tra (9 values
+# a cell and guard cell) and the face centers (2 a face) in, the fluxes (3 a
+# face) out; B11b u0, p0, init, xc, br and dA (13 a cell) and the fluxes (3
+# a face) in, u1 (3 a cell) out; B11c u0, p and init (9 a cell), the strips
+# (9 a block edge cell, 4 edges) and (x0, y0, dx) in, u1 (3 a cell) and the
+# edge fluxes (3 a block edge cell) out.
+B11_OPS = {"b11a_face": 107, "b11b_cell": 9 + 120,
+           "b11c_cell": 108 + 9 + 120 + 6 + 10 + 1, "b11c_face": 114}
+# phases 31-33: the variants' configurations, as tests/test_torch_binary_
+# variants_kernel.py has them; the variant path's bar against fused=False
+# in float32 (the same bar as each kernel against its plain version: the
+# variants differ from the reference in their rounding by a few ulps of a
+# cell, measured 1.4 with the plain versions at depth 5 / block 48)
+SPLIT = [{"conserve_linear_p": cp, "reconstruct_method": rm}
+         for cp in (1, 0) for rm in ("plm", "pcm")]
+STRIPS = [{**o, "riemann": rs} for o in SPLIT for rs in ("hlle", "hllc")]
+VARIANTS = (True, "jnp_strips", "split", False)
+# phase 32: bench_flagship.py's marginal protocol (benchmarks/
+# bench_flagship.py:58-80): the best of 3 runs of n1 and of n2 advances,
+# each ended by a read of the state
+FLAGSHIP_MARGINAL = (5, 45)
+# phase 34: the main path from REGRID_START, a regrid every REGRID_EVERY
+# and tfinal at REGRID_LENGTH times the first step's dt. At d6b96 with the
+# default focus no regrid after t = 0 changes the tree: the sinks pin the
+# center blocks at the finest level within a step, and the 2:1 balance holds
+# the rest. With focus_factor=0.5 the run starts on 4 blocks, and each
+# regrid refines the center a level, halving dt: on the CPU, 4 -> 16 -> 28
+# -> 64 -> 100 -> 136 blocks, the flagship's mesh, in about 230 steps.
+REGRID_START = ["regrid=1", "focus_factor=0.5"]
+REGRID_EVERY, REGRID_LENGTH = 3, 17
+# phases 31, 32 and 34: the flagship configuration (d6b96)
+FLAGSHIP = {"depth": 6, "block_size": 96}
+# phase 33: the regrid run of tests/test_torch_binary_regrid.py, card
+# against CPU, at its bars
+REGRID_ARGS = ["binary", "depth=4", "block_size=8", "regrid=1", "rgi=0.01",
+               "tfinal=0.03"]
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -563,8 +639,9 @@ def record_only(TB):
     return tasks
 
 
-def drive(TB, argv, steps, device, outdir):
-    """setup() and run() of `argv` cut to about `steps` steps: (cfg, sd,
+def drive(TB, argv, steps, device, outdir, rgi_steps=None):
+    """setup() and run() of `argv` cut to about `steps` steps of the first
+    step's dt, with a regrid every `rgi_steps` such dt when given: (cfg, sd,
     final state, log, wall seconds)."""
     import torch
     cfg, sd, state = TB.setup(argv + [f"outdir={outdir}"], device=device,
@@ -574,6 +651,8 @@ def drive(TB, argv, steps, device, outdir):
     dt0 = sd.cfl_number * float(sd.maximum_timestep(
         state.solution.conserved, bodies))
     cfg = cfg.set("tfinal", (steps - 0.5) * dt0 / (2 * math.pi))
+    if rgi_steps:
+        cfg = cfg.set("rgi", rgi_steps * dt0 / (2 * math.pi))
     state = replace(state, run_config=cfg)
     print(f"{argv[1:]}: tfinal={cfg.get_double('tfinal'):.6e} orbits "
           f"(about {steps} steps of dt {dt0:.6e})")
@@ -1670,6 +1749,318 @@ def amr_phases(device, smi, profile):
          "bound_by": b7_bnd[1], "library_ms": None}]
 
 
+def b11_bound(kind, B, bs, itemsize):
+    """(ms, "bytes" or "operations") of kernel B11a (both axes), B11b or
+    B11c on B blocks of bs^2 cells (the counts above the constants)."""
+    cells, faces = B * bs * bs, B * (bs + 1) * bs
+    edge = 4 * B * bs
+    if kind == "b11a":
+        ops = 2 * faces * B11_OPS["b11a_face"]
+        values = 2 * (9 * B * (bs + 2) * bs + 5 * faces)
+    elif kind == "b11b":
+        ops = cells * B11_OPS["b11b_cell"]
+        values = 16 * cells + 6 * faces
+    else:
+        ops = cells * B11_OPS["b11c_cell"] + 2 * faces * B11_OPS["b11c_face"]
+        values = 12 * cells + 12 * edge + 3 * B
+    t_bytes = values * itemsize / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def b11_inputs(TB, TS, BL, over, device, dtype, seed=0):
+    """A seeded flagship case and its kernels' inputs: (sd, u0, bodies, dt,
+    the split front (p0, x, y), the jnp_strips front (p0, strips,
+    theta))."""
+    sd, u0, bodies, dt = seeded_case(TB, over, device, dtype, seed)
+    t = sd.advance.tables
+    consts = BL.build_soa_guard(sd.nt, sd.cfg_scheme.block_size)
+    return (sd, u0, bodies, dt, TS.split_front(t, u0, sd.plm_theta),
+            TS.strips_front(t, sd.nt, consts, u0, sd.plm_theta))
+
+
+def b11_parity(TU, TK, case, dtype, strips_only=False):
+    """Kernels B11a, B11b (unless strips_only) and B11c against their plain
+    versions on one case: the largest |du| of each and of B11c's totals,
+    in ulps of its cell too. Raises past the bars."""
+    import numpy as np
+    import torch
+    sd, u0, bodies, dt, (p0, x, y), (_, strips, theta) = case
+    t, cfg = sd.advance.tables, sd.cfg_scheme
+    worst = {}
+    if not strips_only:
+        fluxes = []
+        e = (0.0, 0.0)
+        for axis, ext in enumerate((x, y)):
+            xf = t.xf if axis == 0 else t.yf
+            got = TU.fused_fluxes_cuda(*ext, xf, t.spacing, bodies, axis, cfg)
+            torch.cuda.synchronize()
+            e = tuple(map(max, e, cell_bar(got, TU.fused_fluxes_plain(
+                *ext, xf, t.spacing, bodies, axis, cfg), dtype, F32_ULPS)))
+            fluxes.append(got)
+        worst["b11a"] = e
+        args = (u0, p0, *fluxes, t.xc, t.buffer_rate, t.initial_conserved,
+                t.dA, dt, bodies, cfg)
+        got = TU.fused_update_cuda(*args)
+        torch.cuda.synchronize()
+        worst["b11b"] = compare(got, TU.fused_update_plain(*args), dtype)
+    args = (u0, p0, strips, t.blockgeo, t.initial_conserved, t.spacing, dt,
+            bodies, theta, cfg)
+    got = TK.advance_core_strips_cuda(*args)
+    torch.cuda.synchronize()
+    want = TK.advance_core_strips_plain(*args)
+    e = cell_bar(got[0], want[0], dtype, F32_ULPS)
+    for g, w in zip(got[1], want[1]):
+        e = tuple(map(max, e, cell_bar(g, w, dtype, F32_ULPS)))
+    bars = F64_TOTALS if dtype == torch.float64 else F32_TOTALS
+    for k in want[2]:
+        a = got[2][k].double().cpu().numpy()
+        b = want[2][k].double().cpu().numpy()
+        check(allclose(a, b, **bars), f"B11c total {k}: {a} vs {b}")
+    worst["b11c"] = e
+    return worst
+
+
+def flagship_marginal(advance, u0, bodies, dt, theta, zones):
+    """bench_flagship.py's marginal rate (zone-updates/s) of `advance`:
+    n1 and n2 advances back to back, each run ended by reading the state to
+    the host, the best of 3 of each."""
+    import torch
+    n1, n2 = FLAGSHIP_MARGINAL
+
+    def run(n):
+        u = u0
+        for _ in range(n):
+            u = advance(u, bodies, dt, theta)[0]
+        return u.cpu()
+
+    check(bool(torch.isfinite(run(n1)).all()), "non-finite variant state")
+    run(n2)
+
+    def once(n):
+        t0 = time.perf_counter()
+        run(n)
+        return time.perf_counter() - t0
+
+    t1 = min(once(n1) for _ in range(3))
+    t2 = min(once(n2) for _ in range(3))
+    return zones * (n2 - n1) / max(t2 - t1, 1e-9), (t2 - t1) / (n2 - n1)
+
+
+def variant_phases(device, smi):
+    """Phases 31-34 (kernels B11a-c, the advance variants, and regrid=1);
+    returns the kernels line's entries of B11a, B11b and B11c."""
+    import numpy as np
+    import torch
+    from mara3_tpu_torch.kernels import binary_advance as TK
+    from mara3_tpu_torch.kernels import binary_multi as TM
+    from mara3_tpu_torch.kernels import binary_update as TU
+    from mara3_tpu_torch.mesh import block_layout as BL
+    from mara3_tpu_torch.schemes import binary_scheme as TS
+    from mara3_tpu_torch.subprograms import binary as TB
+    f64, f32 = torch.float64, torch.float32
+    d3b16 = {"depth": 3, "block_size": 16, "density_floor": 1e-3}
+    d6b96 = FLAGSHIP
+
+    # ---- phase 31: B11a-c against their plain versions ---------------------
+    for dtype in (f64, f32):
+        worst, cases = {}, 0
+        for over in STRIPS:
+            case = b11_inputs(TB, TS, BL, {**d3b16, **over}, device, dtype)
+            e = b11_parity(TU, TK, case, dtype,
+                           strips_only=over["riemann"] != "hlle")
+            for k, v in e.items():
+                worst[k] = tuple(map(max, worst.get(k, (0.0, 0.0)), v))
+            cases += 1
+        print(f"B11 parity d3b16 {str(dtype)[6:]}: B11a and B11b over "
+              f"{len(SPLIT)} configs, B11c over {len(STRIPS)}, pass; max "
+              f"|du| " + ", ".join(f"{k.upper()} {v[0]:.3e} ({v[1]:.2f} ulps "
+                                   f"of its cell)" for k, v in worst.items()))
+    b11_err = {}
+    for dtype in (f64, f32):      # float32 last: it is then timed
+        case = b11_inputs(TB, TS, BL, d6b96, device, dtype)
+        e = b11_parity(TU, TK, case, dtype)
+        b11_err = {k: v[0] for k, v in e.items()}
+        print(f"B11 parity d6b96 {str(dtype)[6:]}: max |du| " + ", ".join(
+            f"{k.upper()} {v[0]:.3e} ({v[1]:.2f} ulps of its cell)"
+            for k, v in e.items()))
+    sd, u0, bodies, dt, (p0, x, y), (_, strips, theta) = case
+    t, cfg = sd.advance.tables, sd.cfg_scheme
+    B, bs = u0.shape[0], u0.shape[1]
+    fluxes = [TU.fused_fluxes_cuda(*x, t.xf, t.spacing, bodies, 0, cfg),
+              TU.fused_fluxes_cuda(*y, t.yf, t.spacing, bodies, 1, cfg)]
+    upd = (u0, p0, *fluxes, t.xc, t.buffer_rate, t.initial_conserved, t.dA,
+           dt, bodies, cfg)
+    adv = (u0, p0, strips, t.blockgeo, t.initial_conserved, t.spacing, dt,
+           bodies, theta, cfg)
+    timed = {
+        "b11a": in_turns(
+            lambda: (TU.fused_fluxes_plain(*x, t.xf, t.spacing, bodies, 0,
+                                           cfg),
+                     TU.fused_fluxes_plain(*y, t.yf, t.spacing, bodies, 1,
+                                           cfg)),
+            lambda: (TU.fused_fluxes_cuda(*x, t.xf, t.spacing, bodies, 0,
+                                          cfg),
+                     TU.fused_fluxes_cuda(*y, t.yf, t.spacing, bodies, 1,
+                                          cfg)), 5, 50),
+        "b11b": in_turns(lambda: TU.fused_update_plain(*upd),
+                         lambda: TU.fused_update_cuda(*upd), 5, 50),
+        "b11c": in_turns(lambda: TK.advance_core_strips_plain(*adv),
+                         lambda: TK.advance_core_strips_cuda(*adv), 5, 50)}
+    bounds = {k: b11_bound(k, B, bs, u0.element_size()) for k in timed}
+    for k, (ms, plain_ms, runs) in timed.items():
+        print(f"time d6b96 float32: {k.upper()} {ms:.4f} ms kernel vs "
+              f"{plain_ms:.4f} ms plain (runs " + " ".join(
+                  f"{r:.4f}" for r in runs) + f"); bound {bounds[k][0]:.4f} "
+              f"ms ({bounds[k][1]}) on {smi}")
+    del case, fluxes, upd, adv, strips, p0, x, y
+
+    # ---- phase 32: the variant path ----------------------------------------
+    TK.advance_cuda.launches = TM.advance_k_cuda.launches = 0
+    TU.fused_fluxes_cuda.launches = TU.fused_update_cuda.launches = 0
+    TK.advance_core_strips_cuda.launches = 0
+    sd, u0, bodies, dt = seeded_case(TB, d6b96, device, f32)
+    bodies_d = torch.as_tensor(bodies, dtype=f32, device=device)
+    dt_d = torch.tensor(dt, dtype=f32, device=device)
+    zones = u0.shape[0] * u0.shape[1] * u0.shape[2]
+    advances = {v: TS.make_advance(sd.cfg_scheme, sd.nt, sd.geometry,
+                                   sd.initial_conserved, sd.buffer_rate,
+                                   device=device, dtype=f32, fused=v)
+                for v in VARIANTS}
+    ref = advances[False](u0, bodies, dt, sd.plm_theta)
+    rates = {}
+    for v in VARIANTS:
+        before = (TK.advance_cuda.launches, TU.fused_fluxes_cuda.launches,
+                  TU.fused_update_cuda.launches,
+                  TK.advance_core_strips_cuda.launches)
+        got = advances[v](u0, bodies, dt, sd.plm_theta)
+        torch.cuda.synchronize()
+        after = (TK.advance_cuda.launches, TU.fused_fluxes_cuda.launches,
+                 TU.fused_update_cuda.launches,
+                 TK.advance_core_strips_cuda.launches)
+        launched = tuple(a - b for a, b in zip(after, before))
+        expect = {True: (1, 0, 0, 0), "jnp_strips": (0, 0, 0, 1),
+                  "split": (0, 2, 1, 0), False: (0, 0, 0, 0)}[v]
+        check(launched == expect, f"fused={v!r} launched (B2, B11a, B11b, "
+                                  f"B11c) {launched}, not {expect}")
+        err, ulps = compare(got, ref, f32)
+        rate, step_s = flagship_marginal(advances[v], u0, bodies_d, dt_d,
+                                         sd.plm_theta, zones)
+        rates[v] = rate
+        print(f"variant fused={v!r} d6b96 float32: one advance against "
+              f"fused=False max |du| {err:.3e} ({ulps:.2f} ulps of its "
+              f"cell); (B2, B11a, B11b, B11c) launches an advance "
+              f"{launched}; marginal {rate:.6e} zone-updates/s "
+              f"({1e3 * step_s:.4f} ms an advance, steps "
+              f"{FLAGSHIP_MARGINAL[0]} -> {FLAGSHIP_MARGINAL[1]}) on {smi}")
+    launches = {"b11a": TU.fused_fluxes_cuda.launches,
+                "b11b": TU.fused_update_cuda.launches,
+                "b11c": TK.advance_core_strips_cuda.launches}
+    check(all(n > 0 for n in launches.values()),
+          f"a B11 kernel was not launched on the variant path: {launches}")
+    print(f"variant path: B11a {launches['b11a']}, B11b "
+          f"{launches['b11b']}, B11c {launches['b11c']}, B2 "
+          f"{TK.advance_cuda.launches} launches; B3 "
+          f"{TM.advance_k_cuda.launches}")
+    del advances, ref, got, u0, sd
+
+    # ---- phase 33: regrid=1, card against CPU ------------------------------
+    for loop in (["fast_step=0"], ["fast_step=1", "multi_launch=4"]):
+        ends = []
+        for dev in (device, torch.device("cpu")):
+            with contextlib.redirect_stdout(io.StringIO()):
+                cfg_, sd_, state = TB.setup(
+                    REGRID_ARGS + loop + ["outdir=."], device=dev, dtype=f64)
+                final = TB.run(cfg_, sd_, state, tasks=record_only(TB))
+            ends.append((final.solver_data.leaves,
+                         final.solution.conserved.cpu().numpy(),
+                         final.solution.iteration,
+                         len(sd_.leaves)))
+        (lg, ug, ig, n0), (lc, uc, ic, _) = ends
+        check(lg == lc and ig == ic, f"regrid {loop}: the card ended on "
+              f"{len(lg)} blocks after {ig} steps, the CPU on {len(lc)} "
+              f"after {ic}")
+        check(len(lg) != n0, f"regrid {loop}: the tree did not change")
+        cell = np.abs(uc).max(axis=-1, keepdims=True)
+        check(allclose(ug, uc, **F64_U)
+              and bool(np.all(np.abs(ug - uc) <= 1e-14 * cell)),
+              f"regrid {loop}: the card's state differs from the CPU's")
+        print(f"regrid d4b8 {' '.join(loop)} float64: {ig} steps, "
+              f"{n0} -> {len(lg)} blocks, the same leaves on the card and "
+              f"the CPU, max |du| {float(np.abs(ug - uc).max()):.3e}")
+
+    # ---- phase 34: regrid=1 on the main path at full width -----------------
+    regrids = []
+    apply_regrid = TB.apply_regrid
+
+    def timed_regrid(solution, sd_, cfg_):
+        t0 = time.perf_counter()
+        out = apply_regrid(solution, sd_, cfg_)
+        regrids.append((len(sd_.leaves), len(out[1].leaves),
+                        (time.perf_counter() - t0) * 1e3,
+                        solution.iteration, TM.advance_k_cuda.launches))
+        return out
+
+    TB.apply_regrid = timed_regrid
+    TK.advance_cuda.launches = TM.advance_k_cuda.launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as outdir:
+            cfg_, sd0, final, log, wall = drive(
+                TB, ["binary"] + [f"{k}={v}" for k, v in FLAGSHIP.items()]
+                + REGRID_START, REGRID_LENGTH, device, outdir,
+                rgi_steps=REGRID_EVERY)
+    finally:
+        TB.apply_regrid = apply_regrid
+    b3, b2 = TM.advance_k_cuda.launches, TK.advance_cuda.launches
+    sd_end = final.solver_data
+    rates_, retries, _ = check_final(final, sd_end, log,
+                                     "step retried in safe mode")
+    changed = [r for r in regrids if r[0] != r[1]]
+    check(len(changed) >= 2, f"{len(changed)} regrids changed the tree")
+    check(b3 >= 3 and b2 == retries, f"{b3} B3 and {b2} B2 launches")
+    steps = final.solution.iteration
+    marks = [0] + [r[3] for r in regrids] + [steps]
+    blocks = [regrids[0][0]] + [r[1] for r in regrids]
+    bs = FLAGSHIP["block_size"]
+    updates = sum((b - a) * n * bs * bs
+                  for a, b, n in zip(marks, marks[1:], blocks))
+    launch_marks = [0] + [r[4] for r in regrids] + [b3]
+    for (before, after, ms, it, _), n in zip(
+            regrids, np.diff(launch_marks)[:-1]):
+        print(f"regrid d6b96 at step {it}: {before} -> {after} blocks in "
+              f"{ms:.3f} ms on the host (the scan and B3's tables "
+              f"rebuilt when the tree changed); {n} B3 launches before it")
+    print(f"regrid main path d6b96 {' '.join(REGRID_START)} float32 "
+          f"(fast_step=1, multi_launch=16; tfinal and rgi {REGRID_LENGTH} "
+          f"and {REGRID_EVERY} times the first dt): {steps} steps, {b3} B3 "
+          f"launches ({launch_marks[-1] - launch_marks[-2]} after the last "
+          f"regrid), {b2} B2, {len(changed)} of {len(regrids)} regrids "
+          f"changed the tree, {len(sd_end.leaves)} blocks at the end, "
+          f"{wall:.4f} s wall; whole-run {updates / wall:.6e} zone-updates/s"
+          f" ({updates / wall / 1e3:.2f} kzps); finite, min density "
+          f"{float(final.solution.conserved[..., 0].min()):.6e} on {smi}")
+
+    def row(k, name, source, replaces):
+        ms, plain_ms, _ = timed[k]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[k],
+                "max_abs_err": b11_err[k], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                "library_ms": None}
+
+    return [
+        row("b11a", "binary_update fused_fluxes (B11a, both axes)",
+            "mara3_tpu_torch/csrc/binary_update.cu",
+            "mara3_tpu/kernels/binary_update.py:350"),
+        row("b11b", "binary_update fused_update (B11b)",
+            "mara3_tpu_torch/csrc/binary_update.cu",
+            "mara3_tpu/kernels/binary_update.py:159"),
+        row("b11c", "binary_advance_strips (B11c)",
+            "mara3_tpu_torch/csrc/binary_advance_strips.cu",
+            "mara3_tpu/kernels/binary_advance.py:417")]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -1708,7 +2099,8 @@ def main(argv=None) -> int:
     from mara3_tpu_torch.kernels import srhd_recover as TREC
     from mara3_tpu_torch.subprograms import sedov as SD
     sources = ("binary_advance", "binary_multi", "iso2d_step", "sedov_step",
-               "cloud_update", "amrsand_step", "sand3d_step")
+               "cloud_update", "amrsand_step", "sand3d_step",
+               "binary_update", "binary_advance_strips")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -2246,6 +2638,7 @@ def main(argv=None) -> int:
 
     b4 = cloud_phases(device, smi, args.profile)
     b67 = amr_phases(device, smi, args.profile)
+    b11 = variant_phases(device, smi)
 
     print(json.dumps({"kernels": [
         {"name": "binary_advance (B2)", "route": "cuda",
@@ -2271,7 +2664,8 @@ def main(argv=None) -> int:
          "replaces": "mara3_tpu/kernels/sedov_step.py:250",
          "launches": b5_launches, "max_abs_err": b5_err,
          "ms": b5_ms, "plain_ms": b5_plain_ms, "bound_ms": b5_bnd[0],
-         "bound_by": b5_bnd[1], "library_ms": None}, *b4, *b67]}))
+         "bound_by": b5_bnd[1], "library_ms": None}, *b4, *b67,
+        *b11]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,8 @@
 // The per-cell and per-face device code of the flagship advance, shared by
 // kernel B2 (binary_advance.cu: one advance per launch) and kernel B3
-// (binary_multi.cu: K whole steps per launch).
+// (binary_multi.cu: K whole steps per launch); kernels B11b and B11c
+// (binary_update.cu, binary_advance_strips.cu) share its slopes, per-cell
+// update (update_cell) and totals.
 //
 // It computes what make_advance(fused=False) computes in
 // mara3_tpu/schemes/binary_scheme.py, in the callers' component-last
@@ -434,42 +436,22 @@ __device__ __forceinline__ T restricted_flux(const T* fx, const T* fy,
        + fy[(((long long)nb * bs + q + 1) * (bs + 1) + e) * 3 + c];
 }
 
-// ---- divergence, sources and update of cell idx -----------------------------
-// V = the updated state; acc += the cell's contributions to the totals
-// (before their final negation).
-template <typename T>
-__device__ void update_at(const T* u0, const T* p, const T* init,
-                          const T* br, const T* fx, const T* fy,
-                          const int* tab, const double* axes,
-                          const double* spacing, long long idx, int bs,
-                          const Params& prm, T V[3], double acc[kTotals]) {
-  const int j = idx % bs;
-  const int i = (idx / bs) % bs;
-  const int b = idx / ((long long)bs * bs);
-  const T x = T(axis_coord(axes, b, bs, 0, i));
-  const T y = T(axis_coord(axes, b, bs, 1, j));
-  const T dA = T(spacing[b] * spacing[b]);
+// ---- sources, update and totals of one cell ---------------------------------
+// U, P: the cell's state and primitives; in: its initial state; brc: its
+// buffer damping rate; div: the divergence of its face fluxes; (x, y): its
+// position; dA: its area. V = the updated state; acc += the cell's
+// contributions to the totals (before their final negation).
+// kTpuGeometric groups the geometric source as the TPU kernels of the split
+// and jnp_strips advances do, 2 (Ek + pg) ramp, then dt
+// (mara3_tpu/kernels/binary_update.py:96, binary_advance.py:375); otherwise
+// as the reference-semantics scheme does, 2 (Ek + pg) (ramp dt).
+template <typename T, bool kTpuGeometric = false>
+__device__ __forceinline__ void update_cell(const T U[3], const T P[3],
+                                            const T in[3], T brc,
+                                            const T div[3], T x, T y, T dA,
+                                            const Params& prm, T V[3],
+                                            double acc[kTotals]) {
   const T dt = T(prm.dt);
-  const int* tb = tab + b * 4 * 6;
-  T U[3], P[3];
-  for (int c = 0; c < 3; ++c) {
-    U[c] = u0[idx * 3 + c];
-    P[c] = p[idx * 3 + c];
-  }
-
-  // flux divergence with the coarse-fine correction in place
-  const long long fxl = ((long long)b * (bs + 1) + i) * bs + j;
-  const long long fyl = ((long long)b * bs + i) * (bs + 1) + j;
-  T div[3];
-  for (int c = 0; c < 3; ++c) {
-    T xl = fx[fxl * 3 + c], xr = fx[(fxl + bs) * 3 + c];
-    T yl = fy[fyl * 3 + c], yr = fy[(fyl + 1) * 3 + c];
-    if (i == 0 && tb[0 * 6] == 2) xl = restricted_flux(fx, fy, tb + 0 * 6, bs, 0, j, c);
-    if (i == bs - 1 && tb[1 * 6] == 2) xr = restricted_flux(fx, fy, tb + 1 * 6, bs, 1, j, c);
-    if (j == 0 && tb[2 * 6] == 2) yl = restricted_flux(fx, fy, tb + 2 * 6, bs, 2, i, c);
-    if (j == bs - 1 && tb[3 * 6] == 2) yr = restricted_flux(fx, fy, tb + 3 * 6, bs, 3, i, c);
-    div[c] = (xr - xl) + (yr - yl);
-  }
 
   // sources (schemes/binary_scheme.source_terms)
   const T sigma = U[0];
@@ -496,9 +478,8 @@ __device__ void update_at(const T* u0, const T* p, const T* init,
   }
   T sb[3], sf[3];
   const T floor_mask = sigma < T(prm.density_floor) ? T(1) : T(0);
-  const T brc = br[idx];
   for (int c = 0; c < 3; ++c) {
-    sb[c] = (init[idx * 3 + c] - U[c]) * brc * dt;
+    sb[c] = (in[c] - U[c]) * brc * dt;
     sf[c] = U[c] * T(0.01) * floor_mask;
     s[c] = sg[0][c] + sg[1][c] + ss[0][c] + ss[1][c] + sb[c] + sf[c];
   }
@@ -508,7 +489,10 @@ __device__ void update_at(const T* u0, const T* p, const T* init,
     const T cs2 = cs2_at(x, y, prm);
     const T Ek = T(0.5) * P[0] * (P[1] * P[1] + P[2] * P[2]);
     const T pg = P[0] * cs2;
-    s[1] = s[1] + T(2) * (Ek + pg) * (ramp * dt);
+    if (kTpuGeometric)
+      s[1] = s[1] + T(2) * (Ek + pg) * ramp * dt;
+    else
+      s[1] = s[1] + T(2) * (Ek + pg) * (ramp * dt);
   }
 
   for (int c = 0; c < 3; ++c) V[c] = U[c] - div[c] * dt / dA + s[c];
@@ -532,6 +516,44 @@ __device__ void update_at(const T* u0, const T* p, const T* init,
   acc[kAngmomEjected] =
       double((prm.conserve_p ? x * sb[2] - y * sb[1] : sb[2]) * dA);
   acc[kFaults] = (V[0] < T(0) || isnan(V[0])) ? 1.0 : 0.0;
+}
+
+// ---- divergence, sources and update of cell idx -----------------------------
+// the coarse-fine flux correction applied in place, then update_cell
+template <typename T>
+__device__ void update_at(const T* u0, const T* p, const T* init,
+                          const T* br, const T* fx, const T* fy,
+                          const int* tab, const double* axes,
+                          const double* spacing, long long idx, int bs,
+                          const Params& prm, T V[3], double acc[kTotals]) {
+  const int j = idx % bs;
+  const int i = (idx / bs) % bs;
+  const int b = idx / ((long long)bs * bs);
+  const T x = T(axis_coord(axes, b, bs, 0, i));
+  const T y = T(axis_coord(axes, b, bs, 1, j));
+  const T dA = T(spacing[b] * spacing[b]);
+  const int* tb = tab + b * 4 * 6;
+  T U[3], P[3], in[3];
+  for (int c = 0; c < 3; ++c) {
+    U[c] = u0[idx * 3 + c];
+    P[c] = p[idx * 3 + c];
+    in[c] = init[idx * 3 + c];
+  }
+
+  // flux divergence with the coarse-fine correction in place
+  const long long fxl = ((long long)b * (bs + 1) + i) * bs + j;
+  const long long fyl = ((long long)b * bs + i) * (bs + 1) + j;
+  T div[3];
+  for (int c = 0; c < 3; ++c) {
+    T xl = fx[fxl * 3 + c], xr = fx[(fxl + bs) * 3 + c];
+    T yl = fy[fyl * 3 + c], yr = fy[(fyl + 1) * 3 + c];
+    if (i == 0 && tb[0 * 6] == 2) xl = restricted_flux(fx, fy, tb + 0 * 6, bs, 0, j, c);
+    if (i == bs - 1 && tb[1 * 6] == 2) xr = restricted_flux(fx, fy, tb + 1 * 6, bs, 1, j, c);
+    if (j == 0 && tb[2 * 6] == 2) yl = restricted_flux(fx, fy, tb + 2 * 6, bs, 2, i, c);
+    if (j == bs - 1 && tb[3 * 6] == 2) yr = restricted_flux(fx, fy, tb + 3 * 6, bs, 3, i, c);
+    div[c] = (xr - xl) + (yr - yl);
+  }
+  update_cell<T>(U, P, in, br[idx], div, x, y, dA, prm, V, acc);
 }
 
 // Sum of each acc[t] over the CTA (kThreads threads, all of which call

@@ -17,6 +17,14 @@ it (device memory: about 26 live values per cell for a few flops each).
   `advance_cuda.launches` counts its launches.
 - `advance` takes the plain version for a tensor on the CPU and the kernel
   for a CUDA tensor; it never falls back from one to the other.
+
+Kernel B11c, the advance of the "jnp_strips" variant, lives here too:
+`advance_core_strips_plain`, `advance_core_strips_cuda` (csrc/
+binary_advance_strips.cu) and the dispatcher `advance_core_strips`. It
+replaces mara3_tpu/kernels/binary_advance.py::fused_advance_core: B2's
+advance with the guard strips built by the scheme's torch front, positions
+formed from each block's (x0, y0, dx), the TPU kernel's face flux, and no
+coarse-fine correction (the scheme's edge fixup applies it).
 """
 
 from __future__ import annotations
@@ -52,6 +60,9 @@ class AdvanceTables:
     tab: torch.Tensor                     # [B, 4, 6] int32 neighbor rows
     axes: torch.Tensor                    # [B, 6, bs+1] float64 coordinates
     spacing64: torch.Tensor               # [B] float64
+    # what kernel B11c reads in place of positions: each block's cell (0, 0)
+    # lower corner and spacing, (x0, y0, dx)
+    blockgeo: torch.Tensor                # [B, 3]
 
 
 def build_tables(cfg: SchemeConfig, nt, geometry, initial_conserved,
@@ -59,8 +70,9 @@ def build_tables(cfg: SchemeConfig, nt, geometry, initial_conserved,
     """Move one mesh's static arrays to the device. `geometry` is the host
     float64 (xc, dA, spacing, xf, yf)."""
     device = torch.device(device)
-    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
-                                     device=device)
+    as_t = lambda a: torch.as_tensor(
+        a if torch.is_tensor(a) else np.asarray(a), dtype=dtype,
+        device=device)
     xc, dA, spacing, xf, yf = (np.asarray(a, np.float64) for a in geometry)
     B, bs = xc.shape[0], xc.shape[1]
     # per-block coordinate rows, exact copies of the geometry arrays:
@@ -88,7 +100,17 @@ def build_tables(cfg: SchemeConfig, nt, geometry, initial_conserved,
         tab=torch.as_tensor(block_layout.pack_neighbor_table(nt),
                             device=device).contiguous(),
         axes=torch.as_tensor(axes, device=device),
-        spacing64=torch.as_tensor(spacing, device=device))
+        spacing64=torch.as_tensor(spacing, device=device),
+        blockgeo=as_t(block_geometry(xc, spacing)))
+
+
+def block_geometry(xc, spacing) -> np.ndarray:
+    """[B, 3] float64 rows (x0, y0, dx): each block's cell (0, 0) lower
+    corner and its spacing, from which kernel B11c forms its positions
+    (mara3_tpu/schemes/binary_scheme.py:517-519)."""
+    x00 = xc[:, 0, 0, 0] - 0.5 * spacing
+    y00 = xc[:, 0, 0, 1] - 0.5 * spacing
+    return np.stack([x00, y00, spacing], axis=-1)
 
 
 def recover(t: AdvanceTables, u0):
@@ -159,6 +181,19 @@ _c_int = ctypes.c_int
 # eight per-body totals of PAIR_TOTALS, mass_ejected,
 # angular_momentum_ejected, the fault count
 NUM_TOTALS = 19
+FAULTS_SLOT = 18
+
+
+def totals_from_slots(totals, dtype, keys=binary_scheme.PAIR_TOTALS):
+    """The totals dict of a kernel's float64 [NUM_TOTALS] sums, in `dtype`:
+    slot 2 q + body for the per-body total q of PAIR_TOTALS (those of
+    `keys`), then mass_ejected and angular_momentum_ejected."""
+    tt = totals.to(dtype)
+    out = {key: tt[2 * q:2 * q + 2]
+           for q, key in enumerate(binary_scheme.PAIR_TOTALS) if key in keys}
+    out["mass_ejected"] = tt[16]
+    out["angular_momentum_ejected"] = tt[17]
+    return out
 
 
 def _library():
@@ -204,6 +239,24 @@ def kernel_params(cfg: SchemeConfig, bodies, dt, theta):
     return params, flags
 
 
+def launch_params(cfg: SchemeConfig, bodies, dt, theta, device,
+                  boundary_tol=None):
+    """(host params, flags, device buffer or None) of a launch: dt, theta
+    and the bodies go to the kernels through the host params when they are
+    host numbers, and through a device buffer that the kernels read when
+    either is a tensor, so the host never waits for them. boundary_tol
+    replaces the Lz boundary test's tolerance (B11a's is its own)."""
+    if torch.is_tensor(bodies) or torch.is_tensor(dt):
+        params, flags = kernel_params(cfg, np.zeros((2, 5)), 0.0, theta)
+        dyn = device_params(dt, theta, bodies, device)
+    else:
+        params, flags = kernel_params(cfg, bodies, dt, theta)
+        dyn = None
+    if boundary_tol is not None:
+        params[23] = boundary_tol
+    return params, flags, dyn
+
+
 def _check(t: AdvanceTables, u0, name="advance_cuda"):
     """Raise unless u0 is what the kernels take: a contiguous CUDA tensor
     [B, bs, bs, 3] of the tables' dtype, on the tables' device."""
@@ -246,12 +299,7 @@ def advance_cuda(t: AdvanceTables, u0, bodies, dt, plm_theta):
     p0 = recover(t, u0).contiguous()
     pg = block_layout.guard_strips(p0, t.gg).contiguous()
     theta = float(plm_theta) if cfg.reconstruct_method == "plm" else 0.0
-    on_device = torch.is_tensor(bodies) or torch.is_tensor(dt)
-    if on_device:
-        params, flags = kernel_params(cfg, np.zeros((2, 5)), 0.0, theta)
-        dyn = device_params(dt, theta, bodies, u0.device)
-    else:
-        params, flags = kernel_params(cfg, bodies, dt, theta)
+    params, flags, dyn = launch_params(cfg, bodies, dt, theta, u0.device)
 
     empty = lambda *shape, dtype=t.dtype: torch.empty(shape, dtype=dtype,
                                                       device=u0.device)
@@ -270,7 +318,7 @@ def advance_cuda(t: AdvanceTables, u0, bodies, dt, plm_theta):
             g.data_ptr(), fx.data_ptr(), fy.data_ptr(), u1.data_ptr(),
             partials.data_ptr(), totals.data_ptr(), B, bs,
             params.ctypes.data, flags)
-    if on_device:
+    if dyn is not None:
         fn = lib.b2_advance_dev_f32 if f32 else lib.b2_advance_dev_f64
         rc = fn(*args, dyn.data_ptr(), stream)
     else:
@@ -280,15 +328,7 @@ def advance_cuda(t: AdvanceTables, u0, bodies, dt, plm_theta):
         raise RuntimeError("binary_advance kernel launch failed: "
                            + lib.b2_error_string(rc).decode())
     advance_cuda.launches += 1
-
-    # slot 2 * q + body for the per-body totals, then the buffer's two
-    # totals and the fault count
-    tt = totals.to(t.dtype)
-    out = {key: tt[2 * q:2 * q + 2]
-           for q, key in enumerate(binary_scheme.PAIR_TOTALS)}
-    out["mass_ejected"] = tt[16]
-    out["angular_momentum_ejected"] = tt[17]
-    return u1, out, totals[18] > 0
+    return u1, totals_from_slots(totals, t.dtype), totals[FAULTS_SLOT] > 0
 
 
 advance_cuda.launches = 0
@@ -302,3 +342,156 @@ def advance(t: AdvanceTables, u0, bodies, dt, plm_theta):
     if u0.device.type == "cuda":
         return advance_cuda(t, u0, bodies, dt, plm_theta)
     raise ValueError(f"no advance for a tensor on {u0.device}")
+
+
+# -----------------------------------------------------------------------------
+# kernel B11c: the jnp_strips advance, guard strips built outside
+# -----------------------------------------------------------------------------
+
+def _iota_positions(geo, n, off, dtype, device):
+    """x0 + (k + off) dx for k < n, per block: [B, n] from geo [B, 2] of
+    (x0, dx) (the TPU kernel's iota positions,
+    mara3_tpu/kernels/binary_advance.py:268-289)."""
+    k = torch.arange(n, dtype=dtype, device=device)[None, :]
+    return geo[:, 0:1] + (k + off) * geo[:, 1:2]
+
+
+def advance_core_strips_plain(u0, p, strips, blockgeo, init, spacing, dt,
+                              bodies, theta, cfg: SchemeConfig):
+    """B11c's arithmetic: (u1, (fxlo, fxhi, fylo, fyhi), totals). u0, p,
+    init [B, bs, bs, 3]; strips [B, 4, bs, 9] (faces x-lo, x-hi, y-lo,
+    y-hi; components p | gx | gy); blockgeo [B, 3] (x0, y0, dx); spacing
+    [B]. u1 is the update before the coarse-fine edge fixup, the edge
+    fluxes [B, bs, 3] are the fluxes through the blocks' four edges, and
+    the totals are binary_update.UPDATE_TOTALS, mass_ejected and
+    angular_momentum_ejected."""
+    from mara3_tpu_torch.kernels import binary_update as BU
+    from mara3_tpu_torch.mathx.plm import plm_gradient
+    dtype, device = u0.dtype, u0.device
+    bodies = torch.as_tensor(bodies, dtype=dtype, device=device)
+    B, bs = u0.shape[0], u0.shape[1]
+    sp = spacing.to(dtype)[:, None, None, None]
+    S = strips
+    pex = torch.cat([S[:, 0, None, :, :3], p, S[:, 1, None, :, :3]], dim=1)
+    pey = torch.cat([S[:, 2, :, None, :3], p, S[:, 3, :, None, :3]], dim=2)
+    gx = plm_gradient(pex[:, :-2], pex[:, 1:-1], pex[:, 2:], theta) / sp
+    gy = plm_gradient(pey[:, :, :-2], pey[:, :, 1:-1], pey[:, :, 2:],
+                      theta) / sp
+    G = torch.cat([gx, gy], dim=-1)                       # [B, bs, bs, 6]
+    Gex = torch.cat([S[:, 0, None, :, 3:], G, S[:, 1, None, :, 3:]], dim=1)
+    Gey = torch.cat([S[:, 2, :, None, 3:], G, S[:, 3, :, None, 3:]], dim=2)
+
+    gx0, gy0, gdx = blockgeo[:, 0:1], blockgeo[:, 1:2], blockgeo[:, 2:3]
+    pos = lambda g0, n, off: _iota_positions(
+        torch.cat([g0, gdx], dim=1), n, off, dtype, device)
+    x = pos(gx0, bs, 0.5)[:, :, None].expand(B, bs, bs)   # cell centers
+    y = pos(gy0, bs, 0.5)[:, None, :].expand(B, bs, bs)
+    xfx = pos(gx0, bs + 1, 0.0)[:, :, None].expand(B, bs + 1, bs)
+    xfy = pos(gy0, bs, 0.5)[:, None, :].expand(B, bs + 1, bs)
+    yfx = pos(gx0, bs, 0.5)[:, :, None].expand(B, bs, bs + 1)
+    yfy = pos(gy0, bs + 1, 0.0)[:, None, :].expand(B, bs, bs + 1)
+    dx = gdx[:, :, None]                                  # [B, 1, 1]
+
+    tol = binary_scheme.boundary_tolerance(cfg.domain_radius)
+    fx = BU.tpu_face_flux(0, pex[:, :-1], pex[:, 1:], Gex[:, :-1, :, 0:3],
+                          Gex[:, 1:, :, 0:3], Gex[:, :-1, :, 3:6],
+                          Gex[:, 1:, :, 3:6], xfx, xfy, dx, bodies, cfg,
+                          False, tol)
+    fy = BU.tpu_face_flux(1, pey[:, :, :-1], pey[:, :, 1:],
+                          Gey[:, :, :-1, 3:6], Gey[:, :, 1:, 3:6],
+                          Gey[:, :, :-1, 0:3], Gey[:, :, 1:, 0:3], yfx, yfy,
+                          dx, bodies, cfg, False, tol)
+    edges = (fx[:, 0], fx[:, bs], fy[:, :, 0], fy[:, :, bs])
+
+    # the buffer damping rate formed from the position, as the TPU kernel
+    # forms it (subprog_binary_solver_data.cpp:61-76)
+    r_cell = torch.sqrt(x * x + y * y)
+    br = cfg.buffer_damping_rate * (
+        1.0 + torch.tanh(3.0 * (r_cell - cfg.domain_radius)))
+    div = (fx[:, 1:] - fx[:, :-1]) + (fy[:, :, 1:] - fy[:, :, :-1])
+    u1, totals = BU.tpu_cell_update(u0, p, init, br, div, x, y, dx * dx, dt,
+                                    bodies, cfg)
+    return u1, edges, totals
+
+
+def _library_strips():
+    """The built csrc/binary_advance_strips.cu (compiled on first use)."""
+    from mara3_tpu_torch.kernels import _build
+    lib = _build.load("binary_advance_strips")
+    if not getattr(lib, "_mara_typed", False):
+        if lib.b11c_num_totals() != NUM_TOTALS:
+            raise RuntimeError("csrc/binary_advance_strips.cu sums "
+                               f"{lib.b11c_num_totals()} totals, not "
+                               f"{NUM_TOTALS}")
+        for fn in (lib.b11c_advance_f32, lib.b11c_advance_f64):
+            fn.argtypes = [_c_void_p] * 12 + [
+                _c_int, _c_int, ctypes.c_double, _c_void_p, _c_int,
+                _c_void_p, _c_void_p]
+            fn.restype = _c_int
+        lib.b11c_num_partials.argtypes = [_c_int, _c_int]
+        lib.b11c_num_partials.restype = _c_int
+        lib.b11c_num_totals.argtypes = []
+        lib.b11c_num_totals.restype = _c_int
+        lib.b11c_error_string.argtypes = [_c_int]
+        lib.b11c_error_string.restype = ctypes.c_char_p
+        lib._mara_typed = True
+    return lib
+
+
+def advance_core_strips_cuda(u0, p, strips, blockgeo, init, spacing, dt,
+                             bodies, theta, cfg: SchemeConfig):
+    """Kernel B11c on CUDA tensors, with advance_core_strips_plain's
+    meaning. Raises if the kernel does not build or its launch fails."""
+    from mara3_tpu_torch.kernels import binary_update as BU
+    B, bs = u0.shape[0], u0.shape[1]
+    for a, shape in ((u0, (B, bs, bs, 3)), (p, (B, bs, bs, 3)),
+                     (init, (B, bs, bs, 3)), (strips, (B, 4, bs, 9)),
+                     (blockgeo, (B, 3)), (spacing, (B,))):
+        if tuple(a.shape) != shape:
+            raise ValueError(f"advance_core_strips_cuda takes {list(shape)}, "
+                             f"got {list(a.shape)}")
+    BU.check_cuda_args("advance_core_strips_cuda", u0.dtype, u0, p, strips,
+                       blockgeo, init, spacing)
+    lib = _library_strips()
+    params, flags, dyn = launch_params(cfg, bodies, dt, float(theta),
+                                       u0.device)
+    empty = lambda *shape, dtype=u0.dtype: torch.empty(shape, dtype=dtype,
+                                                       device=u0.device)
+    g = empty(B, bs, bs, 6)
+    fx = empty(B, bs + 1, bs, 3)
+    fy = empty(B, bs, bs + 1, 3)
+    u1 = empty(B, bs, bs, 3)
+    partials = empty(lib.b11c_num_partials(B, bs), NUM_TOTALS,
+                     dtype=torch.float64)
+    totals = empty(NUM_TOTALS, dtype=torch.float64)
+    spacing64 = spacing.to(torch.float64)
+    fn = (lib.b11c_advance_f32 if u0.dtype == torch.float32
+          else lib.b11c_advance_f64)
+    rc = fn(u0.data_ptr(), p.data_ptr(), strips.data_ptr(),
+            blockgeo.data_ptr(), init.data_ptr(), spacing64.data_ptr(),
+            g.data_ptr(), fx.data_ptr(), fy.data_ptr(), u1.data_ptr(),
+            partials.data_ptr(), totals.data_ptr(), B, bs,
+            cfg.buffer_damping_rate, params.ctypes.data, flags,
+            None if dyn is None else dyn.data_ptr(),
+            torch.cuda.current_stream(u0.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("binary_advance_strips B11c launch failed: "
+                           + lib.b11c_error_string(rc).decode())
+    advance_core_strips_cuda.launches += 1
+    edges = (fx[:, 0], fx[:, bs], fy[:, :, 0], fy[:, :, bs])
+    return u1, edges, totals_from_slots(totals, u0.dtype, BU.UPDATE_TOTALS)
+
+
+advance_core_strips_cuda.launches = 0
+
+
+def advance_core_strips(u0, p, strips, blockgeo, init, spacing, dt, bodies,
+                        theta, cfg: SchemeConfig):
+    """B11c: the plain version for CPU tensors, the kernel for CUDA ones."""
+    if u0.device.type == "cpu":
+        return advance_core_strips_plain(u0, p, strips, blockgeo, init,
+                                         spacing, dt, bodies, theta, cfg)
+    if u0.device.type == "cuda":
+        return advance_core_strips_cuda(u0, p, strips, blockgeo, init,
+                                        spacing, dt, bodies, theta, cfg)
+    raise ValueError(f"no advance_core_strips for a tensor on {u0.device}")

@@ -331,3 +331,100 @@ def extend_blocks_fast(U, gg: GuardGather, axis: int, strips=None):
                           hi.reshape(B, 1, bs, C)], dim=1)
     return torch.cat([lo.reshape(B, bs, 1, C), U,
                       hi.reshape(B, bs, 1, C)], dim=2)
+
+
+# -----------------------------------------------------------------------------
+# guard exchange on component-first blocks from their edge rows (the front
+# of the flagship's jnp_strips advance)
+#
+# The JAX package applies the coarse prolongation (half-select and 2x
+# repeat) and the fine restriction (pair mean, half placement) as one-hot
+# [bs, bs] matmuls, a TPU mechanism; here they are indexed gathers over the
+# same neighbor rows, with the same sums: 0.5 a[q] + 0.5 a[q + 1].
+# -----------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SoaGuard:
+    """Gather positions along a strip of bs cells: guard cell p beside a
+    coarser neighbor's half h reads its edge at coarse_pos[h, p]; beside
+    two finer neighbors it reads neighbor fine_slot[p] at fine_pos[p] and
+    fine_pos[p] + 1."""
+    coarse_pos: np.ndarray   # [2, bs]
+    fine_pos: np.ndarray     # [bs]
+    fine_slot: np.ndarray    # [bs]
+
+    def to(self, device) -> "SoaGuard":
+        """The positions as int64 tensors on `device`."""
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+        return SoaGuard(as_t(self.coarse_pos), as_t(self.fine_pos),
+                        as_t(self.fine_slot))
+
+
+def build_soa_guard(nt: NeighborTable, bs: int) -> SoaGuard:
+    """The SoA guard exchange's positions (the JAX package's one-hot
+    matrices Mh and Pf as indices). `nt` is taken for the JAX signature;
+    the positions depend on bs alone."""
+    half = bs // 2
+    p = np.arange(bs)
+    return SoaGuard(
+        coarse_pos=np.stack([h * half + p // 2 for h in (0, 1)]),
+        fine_pos=(2 * p) % bs,
+        fine_slot=p // half)
+
+
+def guard_strips_from_edges(E, nt: NeighborTable, consts: SoaGuard,
+                            axis: int):
+    """(lo, hi) one-cell guard strips [B, C, bs] from an edge tensor E
+    [B, C, 4, bs] holding rows (axis 0) or columns (axis 1) (0, 1, bs-2,
+    bs-1) of every block along `axis`. Bit-equal to the JAX package's for
+    finite E. The arrays of `nt` and `consts` may be numpy or, to spare the
+    host copies on a hot path, int64 tensors on E's device."""
+    dev = E.device
+    B, C, _, bs = E.shape
+
+    def ids(a):
+        return torch.as_tensor(a, dtype=torch.int64, device=dev)
+
+    def along(rows, pos):
+        """rows [B, C, bs] at positions pos [B, bs] or [bs]."""
+        pos = ids(pos)
+        if pos.dim() == 1:
+            return rows[:, :, pos]
+        return torch.gather(rows, 2, pos[:, None, :].expand(B, C, bs))
+
+    def guard(side):
+        f = 2 * axis + side
+        # the neighbor's facing edge: its high rows for my low side, and
+        # the other way round
+        e_last = 3 if side == 0 else 0
+        e_inner, e_edge = (2, 3) if side == 0 else (1, 0)
+        same = E[ids(nt.same_id[:, f]), :, e_last]
+        crow = E[ids(nt.coarse_id[:, f]), :, e_last]
+        coarse = along(crow, consts.coarse_pos[nt.coarse_half[:, f]])
+        g0 = E[ids(nt.fine_id[:, f, 0])]
+        g1 = E[ids(nt.fine_id[:, f, 1])]
+        a0 = 0.5 * (g0[:, :, e_inner] + g0[:, :, e_edge])
+        a1 = 0.5 * (g1[:, :, e_inner] + g1[:, :, e_edge])
+        slot = ids(consts.fine_slot)[None, None, :]
+        a = torch.where(slot == 0, along(a0, consts.fine_pos),
+                        along(a1, consts.fine_pos))
+        b = torch.where(slot == 0, along(a0, consts.fine_pos + 1),
+                        along(a1, consts.fine_pos + 1))
+        fine = 0.5 * a + 0.5 * b
+        case = ids(nt.case[:, f])[:, None, None]
+        return torch.where(case == 0, same,
+                           torch.where(case == 1, coarse, fine))
+
+    return guard(0), guard(1)
+
+
+def guard_strips_soa(UT, nt: NeighborTable, consts: SoaGuard, axis: int):
+    """(lo, hi) one-cell guard strips [B, C, bs] of component-first blocks
+    UT [B, C, bs, bs] (a permuted view of the port's [B, bs, bs, C] does)."""
+    bs = UT.shape[3]
+    rows = (0, 1, bs - 2, bs - 1)
+    if axis == 0:
+        E = torch.stack([UT[:, :, r] for r in rows], dim=2)
+    else:
+        E = torch.stack([UT[:, :, :, r] for r in rows], dim=2)
+    return guard_strips_from_edges(E, nt, consts, axis)

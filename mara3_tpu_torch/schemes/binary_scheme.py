@@ -365,27 +365,221 @@ def work_done(totals, bodies):
 # -----------------------------------------------------------------------------
 
 def make_advance(cfg: SchemeConfig, nt, geometry, initial_conserved,
-                 buffer_rate, *, device, dtype):
+                 buffer_rate, *, device, dtype, fused=None):
     """Bind the static tables of one mesh. `geometry` is (xc [B,bs,bs,2],
     dA [B,bs,bs], spacing [B], xf [B,bs+1,bs,2], yf [B,bs,bs+1,2]) as host
     numpy float64. Returns advance(u, bodies, dt, plm_theta) ->
-    (u1, totals, invalid) on [B, bs, bs, 3] tensors; bodies is a host
-    [2, 5] array of (mass, x, y, vx, vy) rows.
+    (u1, totals, invalid) on [B, bs, bs, 3] tensors; bodies is a [2, 5]
+    host array or tensor of (mass, x, y, vx, vy) rows.
 
-    On a CUDA tensor the advance launches kernel B2
-    (kernels/binary_advance.py, csrc/binary_advance.cu); on a CPU tensor
-    it runs the plain-torch port of the JAX package's reference-semantics
-    advance (make_advance(fused=False))."""
+    `fused` selects the variant, with the JAX package's meanings:
+      None (auto), True: kernel B2 (kernels/binary_advance.py,
+        csrc/binary_advance.cu) on a CUDA tensor; on a CPU tensor B2's
+        plain version, the reference-semantics advance;
+      "jnp_strips": kernel B11c (csrc/binary_advance_strips.cu) fed by a
+        torch front that builds the guard strips from the edge rows'
+        slopes, then the coarse-fine edge fixup (_make_advance_strips);
+      "split": kernel B11a once per axis, then B11b
+        (kernels/binary_update.py, csrc/binary_update.cu); hlle only;
+      False: the reference-semantics advance in torch ops, on any device.
+    On a CPU tensor each kernel runs its plain version."""
     from mara3_tpu_torch.kernels import binary_advance
 
     tables = binary_advance.build_tables(cfg, nt, geometry,
                                          initial_conserved, buffer_rate,
                                          device=device, dtype=dtype)
+    if fused is None or fused is True:
+        def advance(u0, bodies, dt, plm_theta):
+            return binary_advance.advance(tables, u0, bodies, dt, plm_theta)
+    elif fused is False:
+        def advance(u0, bodies, dt, plm_theta):
+            return binary_advance.advance_plain(tables, u0, bodies, dt,
+                                                plm_theta)
+    elif fused == "jnp_strips":
+        advance = _make_advance_strips(tables)
+    elif fused == "split":
+        if cfg.riemann != "hlle":
+            raise NotImplementedError(
+                "the round-1 split kernels support hlle only; use the "
+                "chunked kernel (fused=True) or the jnp path for hllc")
+        advance = _make_advance_split(tables)
+    else:
+        raise ValueError(f"fused={fused!r}: expected None, True, False, "
+                         f"'split' or 'jnp_strips'")
+    advance.tables = tables
+    return advance
+
+
+def split_front(t, u0, plm_theta):
+    """The split advance's torch front (the JAX package's advance_impl,
+    mara3_tpu/schemes/binary_scheme.py:401-426): primitive recovery, the
+    one-gather guard exchange and the PLM slopes. `t` is the advance's
+    kernels.binary_advance.AdvanceTables. Returns (p0, x, y), x and y the
+    contiguous (p_ex, g_lon_ex, g_tra_ex) that kernel B11a takes for each
+    axis."""
+    from mara3_tpu_torch.kernels import binary_advance
+    from mara3_tpu_torch.mathx.plm import plm_gradient
+    from mara3_tpu_torch.mesh import block_layout
+    p0 = binary_advance.recover(t, u0).contiguous()
+    strips = block_layout.guard_strips(p0, t.gg)
+    p0_ex = block_layout.extend_blocks_fast(p0, t.gg, 0, strips)
+    p0_ey = block_layout.extend_blocks_fast(p0, t.gg, 1, strips)
+    if t.cfg.reconstruct_method == "plm":
+        sp = t.spacing[:, None, None, None]
+        gx = plm_gradient(p0_ex[:, :-2], p0_ex[:, 1:-1], p0_ex[:, 2:],
+                          plm_theta) / sp
+        gy = plm_gradient(p0_ey[:, :, :-2], p0_ey[:, :, 1:-1],
+                          p0_ey[:, :, 2:], plm_theta) / sp
+    else:
+        gx = torch.zeros_like(p0)
+        gy = torch.zeros_like(p0)
+    G = torch.cat([gx, gy], dim=-1)
+    G_strips = block_layout.guard_strips(G, t.gg)
+    G_ex = block_layout.extend_blocks_fast(G, t.gg, 0, G_strips)
+    G_ey = block_layout.extend_blocks_fast(G, t.gg, 1, G_strips)
+    part = lambda a, lo: a[..., lo:lo + 3].contiguous()
+    return (p0, (p0_ex, part(G_ex, 0), part(G_ex, 3)),
+            (p0_ey, part(G_ey, 3), part(G_ey, 0)))
+
+
+def _make_advance_split(t):
+    """The split advance: split_front, kernel B11a for each axis's fluxes,
+    the coarse-fine flux correction, then kernel B11b
+    (mara3_tpu/schemes/binary_scheme.py:401-445)."""
+    from mara3_tpu_torch.kernels import binary_update
+    cfg = t.cfg
 
     def advance(u0, bodies, dt, plm_theta):
-        return binary_advance.advance(tables, u0, bodies, dt, plm_theta)
+        bodies = torch.as_tensor(bodies, dtype=t.dtype, device=u0.device)
+        p0, x, y = split_front(t, u0, plm_theta)
+        fx = binary_update.fused_fluxes(*x, t.xf, t.spacing, bodies, 0, cfg)
+        fy = binary_update.fused_fluxes(*y, t.yf, t.spacing, bodies, 1, cfg)
+        fx = correct_coarse_fine_fluxes(fx, t.nt, axis=0)
+        fy = correct_coarse_fine_fluxes(fy, t.nt, axis=1)
+        u1, totals, invalid = binary_update.fused_update(
+            u0, p0, fx, fy, t.xc, t.buffer_rate, t.initial_conserved, t.dA,
+            dt, bodies, cfg)
+        totals["work_done_on"] = work_done(totals, bodies)
+        return u1, totals, invalid
 
-    advance.tables = tables
+    return advance
+
+
+def strips_front(t, nt, consts, u0, plm_theta):
+    """The jnp_strips advance's torch front (the JAX package's
+    _make_advance_chunked with in_kernel_guards=False,
+    mara3_tpu/schemes/binary_scheme.py:580-705): primitive recovery and the
+    primitive guard strips, the slopes of each block's edge rows and
+    columns (16 per-row plm_gradient calls), their guard strips from the
+    neighbors' edges, packed as kernel B11c takes them. `consts` is
+    block_layout.build_soa_guard(nt, bs); the arrays of both may be numpy or
+    tensors on the run's device. Returns (p0, strips [B, 4, bs, 9]
+    (faces x-lo, x-hi, y-lo, y-hi; components p | gx | gy), theta)."""
+    from mara3_tpu_torch.kernels import binary_advance
+    from mara3_tpu_torch.mathx.plm import plm_gradient
+    from mara3_tpu_torch.mesh import block_layout
+    bs = t.cfg.block_size
+    sp3 = t.spacing[:, None, None]
+    edge = (0, 1, bs - 2, bs - 1)
+    p0 = binary_advance.recover(t, u0).contiguous()
+    pT = p0.permute(0, 3, 1, 2)                         # [B, C, bs, bs]
+    pxlo, pxhi = block_layout.guard_strips_soa(pT, nt, consts, 0)
+    pylo, pyhi = block_layout.guard_strips_soa(pT, nt, consts, 1)
+    theta = plm_theta if t.cfg.reconstruct_method == "plm" else 0.0
+
+    def gx_at_rows(rows):
+        """x-slopes at the given rows, [B, C, len(rows), bs]."""
+        outs = []
+        for r in rows:
+            yl = pxlo if r == 0 else pT[:, :, r - 1]
+            yr = pxhi if r == bs - 1 else pT[:, :, r + 1]
+            outs.append(plm_gradient(yl, pT[:, :, r], yr, theta) / sp3)
+        return torch.stack(outs, dim=2)
+
+    def gy_at_rows(rows):
+        """y-slopes at the given rows (with the y-guards there)."""
+        outs = []
+        for r in rows:
+            ext = torch.cat([pylo[:, :, r:r + 1], pT[:, :, r],
+                             pyhi[:, :, r:r + 1]], dim=2)
+            outs.append(plm_gradient(ext[:, :, :-2], ext[:, :, 1:-1],
+                                     ext[:, :, 2:], theta) / sp3)
+        return torch.stack(outs, dim=2)
+
+    def gy_at_cols(cols):
+        outs = []
+        for c in cols:
+            yl = pylo if c == 0 else pT[:, :, :, c - 1]
+            yr = pyhi if c == bs - 1 else pT[:, :, :, c + 1]
+            outs.append(plm_gradient(yl, pT[:, :, :, c], yr, theta) / sp3)
+        return torch.stack(outs, dim=2)
+
+    def gx_at_cols(cols):
+        outs = []
+        for c in cols:
+            ext = torch.cat([pxlo[:, :, c:c + 1], pT[:, :, :, c],
+                             pxhi[:, :, c:c + 1]], dim=2)
+            outs.append(plm_gradient(ext[:, :, :-2], ext[:, :, 1:-1],
+                                     ext[:, :, 2:], theta) / sp3)
+        return torch.stack(outs, dim=2)
+
+    E_G_x = torch.cat([gx_at_rows(edge), gy_at_rows(edge)], dim=1)
+    E_G_y = torch.cat([gx_at_cols(edge), gy_at_cols(edge)], dim=1)
+    Gxlo, Gxhi = block_layout.guard_strips_from_edges(E_G_x, nt, consts, 0)
+    Gylo, Gyhi = block_layout.guard_strips_from_edges(E_G_y, nt, consts, 1)
+    # [B, 4, 9, bs] as the JAX package packs them, then the port's
+    # component-last [B, 4, bs, 9]
+    strips = torch.stack([
+        torch.cat([pxlo, Gxlo], dim=1), torch.cat([pxhi, Gxhi], dim=1),
+        torch.cat([pylo, Gylo], dim=1), torch.cat([pyhi, Gyhi], dim=1)],
+        dim=1).transpose(2, 3).contiguous()
+    return p0, strips, theta
+
+
+def _make_advance_strips(t):
+    """The jnp_strips advance: strips_front, kernel B11c, then the
+    coarse-fine edge fixup, the fault flag and the totals
+    (mara3_tpu/schemes/binary_scheme.py:690-705, :751-797)."""
+    from mara3_tpu_torch.kernels import binary_advance
+    from mara3_tpu_torch.mesh import block_layout
+    cfg = t.cfg
+    # the tables on the run's device (t.nt holds the neighbor table's
+    # tensors), so the front copies nothing from the host
+    nt = t.nt
+    consts = block_layout.build_soa_guard(nt, cfg.block_size).to(t.device)
+    fine0 = [nt.fine_id[:, f, 0] for f in range(4)]
+    fine1 = [nt.fine_id[:, f, 1] for f in range(4)]
+    fmask = [(nt.case[:, f] == 2).to(t.dtype)[:, None, None]
+             for f in range(4)]
+
+    def advance(u0, bodies, dt, plm_theta):
+        bodies = torch.as_tensor(bodies, dtype=t.dtype, device=u0.device)
+        p0, strips, theta = strips_front(t, nt, consts, u0, plm_theta)
+        u1, edges, totals = binary_advance.advance_core_strips(
+            u0, p0, strips, t.blockgeo, t.initial_conserved, t.spacing, dt,
+            bodies, theta, cfg)
+        return finish(u1, edges, totals, dt, bodies)
+
+    def finish(u1, edges, totals, dt, bodies):
+        """The coarse-fine flux correction as an edge fixup: add
+        (restrict_extrinsic(fine fluxes) - own flux) dt / dA at the faces
+        whose neighbor is finer (correct_fluxes_*,
+        subprog_binary_scheme.cpp:614-720), then the fault flag and the
+        work done. u1 is B11c's fresh output, edited in place."""
+        fxlo, fxhi, fylo, fyhi = edges
+        dtdA = (dt / (t.spacing * t.spacing))[:, None, None]
+
+        def restricted(strip, f):
+            st = torch.cat([strip[fine0[f]], strip[fine1[f]]], dim=1)
+            return st[:, 0::2] + st[:, 1::2]
+
+        u1[:, 0] += (restricted(fxhi, 0) - fxlo) * dtdA * fmask[0]
+        u1[:, -1] -= (restricted(fxlo, 1) - fxhi) * dtdA * fmask[1]
+        u1[:, :, 0] += (restricted(fyhi, 2) - fylo) * dtdA * fmask[2]
+        u1[:, :, -1] -= (restricted(fylo, 3) - fyhi) * dtdA * fmask[3]
+        totals["work_done_on"] = work_done(totals, bodies)
+        return u1, totals, iso2d.contains_invalid(u1)
+
     return advance
 
 

@@ -20,9 +20,15 @@ Two driver loops, as in the JAX package:
     once; with multi_launch=k > 0, up to k steps per launch of kernel B3
     (a chunk's remainder is one shorter launch).
 On a CUDA device fast_step=-1 and multi_launch=-1 resolve to 1 and 16, the
-JAX package's choice on a TPU; on the CPU both resolve to 0. Adaptive
-regridding (regrid=1) raises NotImplementedError naming the ROADMAP.md item
-that will port it.
+JAX package's choice on a TPU; on the CPU both resolve to 0. With regrid=1
+both loops rebuild the leaf set every `rgi` orbits from the density
+gradient (apply_regrid, mesh/regrid.py; beyond the reference, whose trees
+are static) and rebuild everything that hangs off the tree: the solver
+data (geometry, guard tables, B2's tables) and, in the fast loop, the scan
+with B3's tables. run() hands the final solver data back on the state it
+returns (State.solver_data). A checkpoint of a regridded run does not
+restart: its blocks are not the leaves the config builds, and
+read_solution raises, as the JAX package's does.
 
 The run's device is the CUDA card unless the caller asks for the CPU
 (device="cpu" in code, MARA3_TPU_TORCH_DEVICE=cpu on the command line); with
@@ -101,7 +107,7 @@ def create_config_template():
             .item("alpha", 0.1)
             .item("nu", 0.0)
             .item("mdot", 0.0)
-            # adaptive regridding every `rgi` orbits: not ported yet
+            # adaptive regridding every `rgi` orbits (apply_regrid)
             .item("regrid", 0)
             .item("rgi", 0.5)
             # the device-resident step: 1 on, 0 off (the reference-shaped
@@ -119,13 +125,7 @@ def resolve_multi_launch(cfg_value: int, device) -> int:
 
 def resolve_options(cfg, device):
     """The config with fast_step and multi_launch resolved for `device`
-    (-1: 1 and 16 on a CUDA device, 0 and 0 on the CPU); raises on the
-    options this port does not run yet."""
-    if cfg.get_int("regrid") != 0:
-        raise NotImplementedError(
-            "regrid=1 (adaptive regridding) is not ported yet in binary: "
-            "ROADMAP.md queue A item A3-b (mesh/regrid.py is ported; both "
-            "loops and B3's tables must follow a regrid)")
+    (-1: 1 and 16 on a CUDA device, 0 and 0 on the CPU)."""
     fast = cfg.get_int("fast_step")
     if fast < 0:
         fast = int(torch.device(device).type == "cuda")
@@ -635,9 +635,17 @@ def write_solution(group, s: Solution, sd: SolverData):
 
 
 def read_solution(group, sd: SolverData) -> Solution:
+    """The solution of a checkpoint on sd's leaves. Raises ValueError when
+    the checkpoint holds other blocks: a regridded run's checkpoint does not
+    restart (the JAX package's read_solution fails there too)."""
     name = "conserved_u" if sd.conserve_linear_p else "conserved_q"
     idxs, blocks = serialize.read_tree(group[name])
     order = {(l, c[0], c[1]): b for b, (l, c) in enumerate(idxs)}
+    if set(order) != set(sd.leaves):
+        raise ValueError(
+            f"the checkpoint holds {len(order)} blocks that are not the "
+            f"{len(sd.leaves)} leaves this config builds (a regridded run?): "
+            f"restart across a regrid is not supported")
     stacked = np.stack([blocks[order[leaf]] for leaf in sd.leaves])
     arrays = {key: group[key][()] for key in
               ("time", "iteration", "mass_ejected",
@@ -719,6 +727,9 @@ class State:
     schedule: Schedule
     time_series: tuple
     run_config: object
+    # the solver data the solution lives on: set on the state run()
+    # returns, which a regrid may have moved to other leaves
+    solver_data: object = field(repr=False, default=None)
 
 
 def check_finite(s: Solution):
@@ -806,6 +817,36 @@ def create_state(cfg, sd: SolverData) -> State:
     return State(solution, schedule, ts, cfg)
 
 
+def apply_regrid(solution: Solution, sd: SolverData, cfg):
+    """One regrid (the JAX package's apply_regrid, beyond the reference,
+    whose trees are static): flag the blocks on the density-gradient
+    indicator, enforce 2:1 balance, remap the state by prolongation and
+    restriction (mesh/regrid.py, on the host), and rebuild the solver data
+    for the new leaves on the run's device. The cell-average remap keeps
+    the totals of mass and momentum. Returns (solution, sd), the same
+    objects when the leaf set is unchanged."""
+    import time as _time
+
+    from mara3_tpu_torch.mesh import regrid as rg
+    t0 = _time.perf_counter()
+    u = solution.conserved.detach().cpu().numpy()
+    indicator = rg.gradient_indicator(u, np.asarray(sd.geometry[2]))
+    new_leaves = rg.propose_leaves(sd.leaves, indicator,
+                                   refine_threshold=0.3,
+                                   coarsen_threshold=0.05,
+                                   max_level=cfg.get_int("depth"))
+    if tuple(new_leaves) == tuple(sd.leaves):
+        return solution, sd
+    remapped = rg.remap_blocks(sd.leaves, u, new_leaves)
+    sd2 = create_solver_data(cfg, leaves=new_leaves, device=sd.device,
+                             dtype=sd.dtype)
+    conserved = torch.as_tensor(remapped, dtype=sd.dtype, device=sd.device)
+    ms = (_time.perf_counter() - t0) * 1e3
+    print(f"regrid: {len(sd.leaves)} -> {len(new_leaves)} blocks "
+          f"({ms:.3f} ms on the host)")
+    return replace(solution, conserved=conserved), sd2
+
+
 def next_state(state: State, sd: SolverData) -> State:
     solution = next_solution(state.solution, sd)
     cfg = state.run_config
@@ -852,8 +893,10 @@ def run(cfg, sd: SolverData, state: State, tasks=run_tasks) -> State:
     `tasks(state, sd)` for the checkpoints, diagnostics and time series.
     fast_step=1 runs the device-resident loop (_main_fast); fast_step=0 the
     reference's loop (subprog_binary.cpp:394-449), with the tasks after
-    every step. Returns the final state; raises driver.NonFiniteState if a
-    write or the end finds the state not finite."""
+    every step. With regrid=1 both loops regrid every `rgi` orbits
+    (apply_regrid). Returns the final state, with the solver data it lives
+    on as `solver_data`; raises driver.NonFiniteState if a write or the end
+    finds the state not finite."""
     state = tasks(state, sd)
     if cfg.get_int("fast_step"):
         final = _main_fast(cfg, sd, state, tasks)
@@ -861,7 +904,14 @@ def run(cfg, sd: SolverData, state: State, tasks=run_tasks) -> State:
         return final
     from mara3_tpu_torch.app.performance import time_execution
     bs = cfg.get_int("block_size")
+    regrid_on = cfg.get_int("regrid") != 0
+    rgi_t = cfg.get_double("rgi") * 2 * math.pi
+    next_regrid = state.solution.time + rgi_t
     while state.solution.time / (2 * math.pi) < cfg.get_double("tfinal"):
+        if regrid_on and state.solution.time >= next_regrid:
+            sol2, sd = apply_regrid(state.solution, sd, cfg)
+            state = replace(state, solution=sol2)
+            next_regrid += rgi_t
         num_zones = len(sd.leaves) * bs * bs
         state, perf = time_execution(
             lambda s: tasks(next_state(s, sd), sd), state)
@@ -871,7 +921,7 @@ def run(cfg, sd: SolverData, state: State, tasks=run_tasks) -> State:
               f"kzps={rate:3.2f}")
     final = tasks(next_state(state, sd), sd)
     check_finite(final.solution)
-    return final
+    return replace(final, solver_data=sd)
 
 
 # chunk lengths of the fast loop, longest first
@@ -901,7 +951,9 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
     is sampled by replaying the chunk to it from its head. A chunk with a
     negative density is repaired: rewind, replay the good steps, retry the
     faulted one in safe mode. Checkpoints and diagnostics run at the first
-    chunk boundary after they come due."""
+    chunk boundary after they come due. With regrid=1 a chunk also stops at
+    the next regrid, and a regrid that changes the tree rebuilds the scan
+    (B3's tables) on the new solver data."""
     import time as _time
 
     from mara3_tpu_torch.schemes import binary_step
@@ -918,6 +970,8 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
         ("write_diagnostics", cfg.get_double("dfi") * 2 * math.pi),
         ("record_time_series", tsi_t)]
     retry_step = None                      # built when a fault needs it
+    regrid_on = cfg.get_int("regrid") != 0
+    rgi_t = cfg.get_double("rgi") * 2 * math.pi
 
     def replay(s_, n_):
         """n_ steps of the scan in CHUNKS-sized calls: (state, host rows)."""
@@ -952,19 +1006,34 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
 
     t_now = float(state.solution.time)
     t_f64 = t_now                          # float64 time anchor
+    next_regrid = t_now + rgi_t
     dt_est = None
     while t_now < tfinal_t:
+        if regrid_on and t_now >= next_regrid:
+            sol2, sd2 = apply_regrid(
+                binary_step.arrays_to_solution(s, Solution), sd, cfg)
+            if sd2 is not sd:
+                sd = sd2
+                scan_steps = build_scan(cfg, sd)
+                retry_step = None
+                num_zones = len(sd.leaves) * cfg.get_int("block_size") ** 2
+                s = binary_step.solution_to_arrays(sol2)
+            next_regrid += rgi_t
         if dt_est is None:
             n = 1                          # learn dt first
         else:
             remaining = max(1, int((tfinal_t - t_now) / dt_est) + 1)
+            # stop at the next regrid
+            n_cap = (max(1, int((next_regrid - t_now) / dt_est) + 1)
+                     if regrid_on else remaining)
             # stop just short of the predicted time-series due, so that
             # the due falls in the first steps of the next chunk and its
             # replay is short
             next_ts = schedule.last_performed("record_time_series") + tsi_t
             if t_now < next_ts:
                 to_due = max(1, int((next_ts - t_now) / dt_est) - 1)
-                remaining = min(remaining, to_due)
+                n_cap = min(n_cap, to_due)
+            remaining = min(remaining, n_cap)
             n = next(c for c in CHUNKS if c <= remaining)
 
         t0 = _time.perf_counter()
@@ -1019,7 +1088,7 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
 
     state = State(binary_step.arrays_to_solution(s, Solution), schedule, ts,
                   cfg)
-    return tasks(state, sd)
+    return replace(tasks(state, sd), solver_data=sd)
 
 
 @register("binary")

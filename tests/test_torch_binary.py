@@ -207,14 +207,20 @@ def test_cli_lists_subprograms(tmp_path):
     assert proc.returncode == 0 and "binary" in proc.stdout
 
 
-@pytest.mark.parametrize("option", ["regrid=1"])
-def test_unported_options_raise(option):
-    """Options whose code paths are not ported yet raise, naming the
-    ROADMAP item; they are never ignored."""
+def test_regrid_option_resolves_and_runs(tmp_path):
+    """regrid=1, which slices 1-6 refused, now resolves to itself and runs
+    (tests/test_torch_binary_regrid.py holds it to the JAX package)."""
     cfg = TB.driver.create_run_config(TB.create_config_template(),
-                                      ["binary", option])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        TB.resolve_options(cfg, "cpu")
+                                      ["binary", "regrid=1"])
+    assert TB.resolve_options(cfg, "cpu").get_int("regrid") == 1
+    cfg, sd, state = TB.setup(["binary", "depth=3", "block_size=8",
+                               "regrid=1", "rgi=0.005", "tfinal=0.012",
+                               f"outdir={tmp_path}"], device="cpu",
+                              dtype=torch.float64)
+    final = TB.run(cfg, sd, state, tasks=lambda st, _: st)
+    assert final.solver_data is not None
+    assert final.solution.conserved.shape[0] == len(final.solver_data.leaves)
+    assert final.solution.time / (2 * np.pi) >= 0.012
 
 
 @pytest.mark.parametrize("option,key,value", [
@@ -230,7 +236,8 @@ def test_ported_options_resolve(option, key, value):
 
 def test_no_jax_in_the_port():
     """Importing the port and running a step, the per-step scan and the
-    multi-step scan (kernel B3's plain version), a sedov SRHD step of
+    multi-step scan (kernel B3's plain version), the split and jnp_strips
+    advances (kernels B11a-c's plain versions), a regrid, a sedov SRHD step of
     kernel B5's plain version, two cloud steps of kernel B4d's plain
     version, and two amrsand and two sand3d steps of kernels B6's and B7's
     plain versions, loads neither jax nor the JAX package, and no source
@@ -277,6 +284,14 @@ def test_no_jax_in_the_port():
         "{'block_size': 4}), m)\n"
         "S3.make_advance_auto(m, 4, S3.VELOCITY, 1)(g.conserved, 1e-3, 2)\n"
         "assert S3.LAST_PATH == 'plain_b7[2]', S3.LAST_PATH\n"
+        "from mara3_tpu_torch.schemes import binary_scheme as BS\n"
+        "for v in ('split', 'jnp_strips'):\n"
+        "    BS.make_advance(sd.cfg_scheme, sd.nt, sd.geometry,"
+        " sd.initial_conserved, sd.buffer_rate, device='cpu',"
+        " dtype=torch.float32, fused=v)(sd.initial_conserved,"
+        " B.bodies_array(B.two_body.compute_two_body_state("
+        "B.create_solution(cfg, sd).orbital_elements, 0.0)), 1e-3, 1.8)\n"
+        "B.apply_regrid(B.create_solution(cfg, sd), sd, cfg.set('depth', 3))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mara3_tpu' or m.startswith('mara3_tpu.')]\n"
         "assert not bad, bad\n"
