@@ -10,8 +10,8 @@ exits non-zero and prints no result):
 2. build: compiles mara3_tpu_torch/csrc/binary_advance.cu (kernel B2),
    binary_multi.cu (B3), iso2d_step.cu (B1), sedov_step.cu (B5),
    cloud_update.cu (B4), amrsand_step.cu (B6), sand3d_step.cu (B7),
-   binary_update.cu (B11a, B11b) and binary_advance_strips.cu (B11c), one
-   nvcc each, started together;
+   binary_update.cu (B11a, B11b), binary_advance_strips.cu (B11c) and
+   iso2d_ladder.cu (B9, B10a-c), one nvcc each, started together;
 3. B2 parity: kernel B2 against its plain PyTorch version on the card, at
    depth 3 / block 16 over {conserve_linear_p} x {hlle, hllc} x {plm, pcm}
    and at the main path's shape (depth 6 / block 96), each in float64 at
@@ -145,6 +145,30 @@ exits non-zero and prints no result):
    default focus no regrid after t = 0 changes the tree). Each regrid's blocks and host time, the B3 launches between
    regrids, the whole-run rate and the finite end; at least two regrids
    must change the tree;
+35. ladder parity: kernel B9 (csrc/iso2d_ladder.cu) against its plain
+   version over {rk1, rk2} x {hlle, hllc} x {periodic, random strips},
+   and B10a, B10b and B10c against theirs, at 96 x 160 (B9 in stripes of
+   32, G = 2) and at 2048^2 (bench.py's v4 and v3 configurations, G = 4),
+   float64 at the CPU bars and float32 at 64 ulps of each cell; then G
+   steps of each kernel's periodic wrapper against B1 in rk1 hlle, bit for
+   bit expected (printed; held at the ulp bar if not);
+36. the sharded module on one card: make_advance_v4_sharded over 4 shards
+   of cuda:0 at 2048^2 float32 for 64 steps, bitwise equal to one shard
+   (and compared with B1), rk1 hlle and rk2 hllc;
+37. kh sharded, card against CPU: ``kh N=256 shards=-1`` (B9 on the card)
+   against ``shards=2`` (B9's plain version on the CPU), float64, 12 steps;
+38. kh sharded main path: ``kh N=2048 shards=-1`` (float32, rk1 hlle)
+   through kh.setup() and kh.run() for 2,000 steps, then rk2 hllc for
+   600, every B9 launch counted (one a shard and grain of 4 steps); prints
+   the whole-run rates beside phase 13's B1 rates;
+39. the ladder's bench-shaped rates: bench.py's run_pallas (B9, G = 4, TX
+   = 256) and run_pallas_v3 (B10c, G = 4, tile 64 x 1024) protocol, the
+   marginal rate between 52 and 4,052 steps, median of 5 pairs by CUDA
+   events, beside phase 14's B1 rate; one step of B10a and B10b with their
+   extension or strips; every B10a-c launch counted;
+40. timing at 2048^2 float32, in turns: B9 (4 steps a call), B10a, B10b
+   and B10c (4 steps a call) against their plain versions, beside the
+   bound; each new phase prints its wall time;
 
 then prints one JSON line describing the kernels and, last, the ok line.
 ``--profile PATH`` also writes torch.profiler tables of a d6b96 B2 advance,
@@ -432,6 +456,29 @@ FLAGSHIP = {"depth": 6, "block_size": 96}
 # against CPU, at its bars
 REGRID_ARGS = ["binary", "depth=4", "block_size=8", "regrid=1", "rgi=0.01",
                "tfinal=0.03"]
+
+
+# Kernels B9, B10a, B10b and B10c (csrc/iso2d_ladder.cu) do B1's
+# arithmetic per cell and stage (B1_OPS_CELL_STAGE, B1_OPS_CELL_RK2_STEP).
+# The functions they compute (G steps of each tile or stripe from its
+# window, the strips given) need every stage's update on each window, the
+# halo included, and a window shrinks by 2 cells a side a stage:
+# ladder_bound counts those updates (window_updates). Bytes: each input
+# (the state and its strips, or the extended state) read once, the state
+# written once. B10a and B10b take one step a call, B9 and B10c G.
+# phase 35's odd shape (no TPU rule allows it): B9 in stripes of 32 with
+# G = 2, B10b and B10c in tiles of 32 x 32
+LADDER_ODD = (96, 160)
+LADDER_ODD_TX, LADDER_ODD_G, LADDER_ODD_TILE = 32, 2, (32, 32)
+# bench.py's configurations (bench.py:98-121): v4 with G = 4 and TX = 256,
+# v3 with G = 4 and tile (64, 1024); v2 at its default tile
+# (iso2d_step_v2.py:116)
+LADDER_G, LADDER_TX = 4, 256
+LADDER_V2_TILE, LADDER_V3_TILE = (256, 512), (64, 1024)
+# phase 36: steps of the sharded module on one card; phase 37: kh card
+# against CPU, three grains
+SHARDED_STEPS = 64
+KH_SHARDED_CPU_STEPS = 12
 
 
 class PhaseError(RuntimeError):
@@ -787,10 +834,11 @@ def kh_record_only(KH, samples):
     return tasks
 
 
-def drive_kh(KH, T1, argv, steps, device):
-    """kh's setup() and run() of `argv` cut to `steps` steps, B1's count
-    set to 0 just before the run: (final state, log, wall seconds,
-    time-series samples, B1 calls)."""
+def drive_kh(KH, wrapper, argv, steps, device):
+    """kh's setup() and run() of `argv` cut to `steps` steps, the count of
+    the kernel wrapper `wrapper` (B1's, or B9's on the sharded run) set to 0
+    just before the run: (final state, log, wall seconds, time-series
+    samples, the wrapper's launches)."""
     import torch
     cfg, state = KH.setup(argv, device=device)
     cfg = cfg.set("tfinal", (steps - 0.5) * state.solution.dt)
@@ -798,19 +846,20 @@ def drive_kh(KH, T1, argv, steps, device):
           f"steps of dt {state.solution.dt:.6e})")
     samples = []
     tee = Tee(sys.stdout)
-    T1.advance_n_cuda.launches = 0
+    wrapper.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         final = KH.run(cfg, state, tasks=kh_record_only(KH, samples))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return (final, tee.buf.getvalue(), wall, samples,
-            T1.advance_n_cuda.launches)
+    return final, tee.buf.getvalue(), wall, samples, wrapper.launches
 
 
-def check_kh(final, log, samples, calls, n, steps, path):
+def check_kh(final, log, samples, calls, n, steps, path, grain=None,
+             shards=1):
     """A kh run's end: the state's shape, finite values, positive density,
-    the mass kept, every chunk one B1 call; returns the chunk kzps."""
+    the mass kept, every chunk one B1 call (or, sharded, one B9 launch a
+    shard and grain of `grain` steps); returns the chunk kzps."""
     import torch
     u = final.solution.conserved
     check(tuple(u.shape) == (n, n, 3) and u.dtype == torch.float32,
@@ -822,7 +871,9 @@ def check_kh(final, log, samples, calls, n, steps, path):
     chunks = re.findall(r"kzps=([0-9.]+) \[([a-z0-9_]+)\[", log)
     check(len(chunks) >= 1 and all(p == path for _, p in chunks),
           f"kh chunks ran {sorted(set(p for _, p in chunks))}, not {path}")
-    check(calls == len(chunks), f"{calls} B1 calls for {len(chunks)} chunks")
+    want = len(chunks) if grain is None else steps // grain * shards
+    check(calls == want, f"{calls} kernel calls for {len(chunks)} chunks "
+          f"of {steps} steps, not {want}")
     check(len(samples) >= 2, "kh recorded fewer than 2 time-series samples")
     mass = [r["total_mass"] for r in samples]
     # float32 steps keep the total to round-off of the sum, not exactly
@@ -2061,6 +2112,299 @@ def variant_phases(device, smi):
             "mara3_tpu/kernels/binary_advance.py:417")]
 
 
+def seeded_strips(gi, h, ny, dtype, device, seed):
+    """(lo, hi) [gi, 3, h, ny] of seeded states, unrelated to the state
+    they border."""
+    return tuple(seeded_iso2d(gi * h, ny, dtype, device, seed + k)
+                 .reshape(3, gi, h, ny).permute(1, 0, 2, 3).contiguous()
+                 for k in (0, 1))
+
+
+def window_updates(extent, h, stages):
+    """The cells along one axis that a window of extent + 2h updates over
+    `stages` stages, shrinking by 2 a side a stage."""
+    return sum(extent + 2 * h - 4 * s for s in range(1, stages + 1))
+
+
+def ladder_bound(tensors, updates, rk2_averages=0, riemann="hlle"):
+    """(ms, "bytes" or "operations"): the least time for a ladder kernel's
+    call that reads and writes `tensors` once each and does `updates`
+    cell-stage updates and `rk2_averages` Heun averages."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    ops = (updates * B1_OPS_CELL_STAGE[riemann]
+           + rk2_averages * B1_OPS_CELL_RK2_STEP)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ladder_phases(device, smi, b1):
+    """Phases 35-40 (kernels B9 and B10a-c, kh's x-sharded run); `b1` holds
+    phases 13-15's B1 numbers, printed beside. Returns the kernels line's
+    entries of B9, B10a, B10b and B10c."""
+    import torch
+    from mara3_tpu_torch.kernels import iso2d_step as T1
+    from mara3_tpu_torch.kernels import iso2d_step_v1 as V1
+    from mara3_tpu_torch.kernels import iso2d_step_v2 as V2
+    from mara3_tpu_torch.kernels import iso2d_step_v3 as V3
+    from mara3_tpu_torch.kernels import iso2d_step_v4 as V4
+    from mara3_tpu_torch.parallel import iso2d_sharded as TSH
+    from mara3_tpu_torch.subprograms import kh as KH
+    f64, f32 = torch.float64, torch.float32
+    kh_cfg = KH.config_template().create().update({"N": KH_N})
+    kh64 = KH.initial_conserved(kh_cfg, dtype=f64)
+    kw = KH.advance_kwargs(kh_cfg, KH.fixed_timestep(kh_cfg, kh64))
+    base = dict(cs2=kw["cs2"], dtdx=kw["dt"] / kw["dx"],
+                dtdy=kw["dt"] / kw["dy"], theta=kw["theta"])
+    keys = ("b9", "b10a", "b10b", "b10c")
+    err, bitwise = {}, dict.fromkeys(keys, True)
+
+    # ---- phase 35: B9 and B10a-c against their plain versions and B1 -------
+    t0 = time.perf_counter()
+    for dtype in (f64, f32):
+        worst, cases = dict.fromkeys(keys, (0.0, 0.0)), 0
+        big = kh64.to(dtype).permute(2, 0, 1).contiguous().to(device)
+        odd = seeded_iso2d(*LADDER_ODD, dtype, device)
+        shapes = ((odd, LADDER_ODD_TX, LADDER_ODD_G, LADDER_ODD_TILE,
+                   LADDER_ODD_TILE),
+                  (big, LADDER_TX, LADDER_G, LADDER_V2_TILE, LADDER_V3_TILE))
+        for u, TX, G, tile2, tile3 in shapes:
+            pairs = []
+            for rk in (1, 2):
+                for riemann in ("hlle", "hllc"):
+                    h, ny = 2 * G * rk, u.shape[2]
+                    k4 = dict(base, G=G, TX=TX, rk_order=rk, riemann=riemann)
+                    for strips in (V4.build_x_strips(u, TX, h),
+                                   seeded_strips(u.shape[1] // TX, h, ny,
+                                                 dtype, device, 7)):
+                        pairs.append((
+                            "b9", V4.step_v4_strips_cuda(u, *strips, **k4),
+                            lambda s=strips, k=k4:
+                                V4.step_v4_strips_plain(u, *s, **k)))
+            ext = V1.extend_periodic(u)
+            s2 = V2.build_halo_strips(u, *tile2)
+            s3 = V2.build_halo_strips(u, *tile3, h=2 * G)
+            pairs += [
+                ("b10a", V1.step_v1_cuda(ext, **base),
+                 lambda: V1.step_v1_plain(ext, **base)),
+                ("b10b", V2.step_v2_strips_cuda(u, *s2, tile=tile2, **base),
+                 lambda: V2.step_v2_strips_plain(u, *s2, tile=tile2,
+                                                 **base)),
+                ("b10c", V3.step_v3_strips_cuda(u, *s3, G=G, tile=tile3,
+                                                **base),
+                 lambda: V3.step_v3_strips_plain(u, *s3, G=G, tile=tile3,
+                                                 **base))]
+            torch.cuda.synchronize()
+            for k, got, plain in pairs:
+                e = b1_bar(got, plain(), dtype)
+                worst[k] = tuple(map(max, worst[k], e))
+                cases += 1
+                if u is big and k not in err and dtype == f32:
+                    err[k] = e[0]   # B9's first: periodic rk1 hlle
+            # against B1 in rk1 hlle, G steps of each periodic wrapper
+            want = T1.advance_n_cuda(u, G, **base)
+            runs = {"b9": V4.advance_n_v4(u, G, G=G, TX=TX, **base),
+                    "b10a": V1.advance_n_v1(u, G, **base),
+                    "b10b": V2.advance_n_v2(u, G, tile=tile2, **base),
+                    "b10c": V3.advance_n_v3(u, G, G=G, tile=tile3, **base)}
+            torch.cuda.synchronize()
+            for k, got in runs.items():
+                if not torch.equal(got, want):
+                    bitwise[k] = False
+                    b1_bar(got, want, dtype)     # held at the ulp bar
+            del pairs, runs, want
+        print(f"ladder parity {str(dtype)[6:]}: {cases} cases pass (B9 "
+              f"{{rk1, rk2}} x {{hlle, hllc}} x {{periodic, random strips}}"
+              f", B10a, B10b, B10c at {LADDER_ODD[0]}x{LADDER_ODD[1]} and "
+              f"{KH_N}^2); max |du| against the plain versions: "
+              + ", ".join(f"{k} {v[0]:.3e} ({v[1]:.2f} ulps of its cell)"
+                          for k, v in worst.items()))
+    print("ladder against B1 (rk1 hlle, G steps, both shapes, float64 and "
+          "float32): " + ", ".join(
+              f"{k} {'bitwise' if v else 'NOT bitwise, within the ulp bar'}"
+              for k, v in bitwise.items()))
+    del big, odd
+    print(f"phase 35: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 36: the sharded module, 4 shards on one card ----------------
+    t0 = time.perf_counter()
+    u = kh64.to(f32).permute(2, 0, 1).contiguous().to(device)
+    for rk, riemann in ((1, "hlle"), (2, "hllc")):
+        k4 = dict(base, TX=LADDER_TX, rk_order=rk, riemann=riemann)
+        runs = []
+        for n in (4, 1):
+            devices = [device] * n
+            adv = TSH.make_advance_v4_sharded(devices, G=LADDER_G, **k4)
+            V4.step_v4_strips_cuda.launches = 0
+            runs.append(TSH.gather_state(adv(TSH.shard_state(u, devices),
+                                             SHARDED_STEPS)))
+            want = n * SHARDED_STEPS // LADDER_G
+            check(V4.step_v4_strips_cuda.launches == want,
+                  f"{V4.step_v4_strips_cuda.launches} B9 launches on {n} "
+                  f"shards, not {want}")
+        b1_run = T1.advance_n_cuda(u, SHARDED_STEPS, **base, rk_order=rk,
+                                   riemann=riemann)
+        torch.cuda.synchronize()
+        check(torch.equal(runs[0], runs[1]),
+              f"4 shards on one card differ from one shard (rk{rk} "
+              f"{riemann})")
+        same = torch.equal(runs[0], b1_run)
+        if not same:
+            b1_bar(runs[0], b1_run, f32)
+        print(f"sharded {KH_N}^2 float32 rk{rk} {riemann}: "
+              f"make_advance_v4_sharded([{device}] * 4) {SHARDED_STEPS} steps"
+              f" ({4 * SHARDED_STEPS // LADDER_G} B9 launches) bitwise equal "
+              f"to one shard; against B1 "
+              + ("bitwise" if same else "within the ulp bar, not bitwise"))
+    del runs, b1_run
+    print(f"phase 36: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 37: kh shards=-1 on the card against shards=2 on the CPU ----
+    t0 = time.perf_counter()
+    finals, paths = {}, {}
+    for where, shards, dev in (("card", -1, device), ("cpu", 2, "cpu")):
+        with contextlib.redirect_stdout(io.StringIO()):
+            cfg, state = KH.setup(["kh", "N=256", f"shards={shards}"],
+                                  device=dev, dtype=f64)
+            cfg = cfg.set("tfinal", (KH_SHARDED_CPU_STEPS - 0.5)
+                          * state.solution.dt)
+            final = KH.run(cfg, state, tasks=kh_record_only(KH, []))
+        check(final.solution.iteration == KH_SHARDED_CPU_STEPS,
+              f"kh ran {final.solution.iteration} steps on the {where}")
+        finals[where], paths[where] = final.solution.conserved.cpu(), \
+            KH.LAST_PATH
+    ncard = torch.cuda.device_count()
+    check(paths == {"card": f"sharded_b9[{ncard}dev]",
+                    "cpu": "sharded_b9[2dev]"}, f"kh ran {paths}")
+    check(allclose(finals["card"].numpy(), finals["cpu"].numpy(),
+                   **KH_CARD_CPU),
+          "kh N=256 shards: the card differs from the CPU")
+    print(f"kh N=256 float64: {KH_SHARDED_CPU_STEPS} steps of shards=-1 "
+          f"({paths['card']}, B9 on the card) match shards=2 on the CPU "
+          f"({paths['cpu']}, B9's plain version) at rtol "
+          f"{KH_CARD_CPU['rtol']}, max |du| "
+          f"{float((finals['card'] - finals['cpu']).abs().max()):.3e}")
+    print(f"phase 37: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 38: the kh sharded main path at full width ------------------
+    t0 = time.perf_counter()
+    kh_argv = ["kh", f"N={KH_N}", "shards=-1"]
+    final, log, wall, samples, b9_main = drive_kh(
+        KH, V4.step_v4_strips_cuda, kh_argv, KH_STEPS, device)
+    rates = check_kh(final, log, samples, b9_main, KH_N, KH_STEPS,
+                     "sharded_b9", grain=LADDER_G, shards=ncard)
+    rate = KH_STEPS * KH_N * KH_N / wall
+    print(f"kh sharded main path N={KH_N} shards=-1 ({ncard} card) rk1 hlle "
+          f"float32: {KH_STEPS} steps in {b9_main} B9 launches "
+          f"({len(rates)} chunks), {wall:.4f} s wall; whole-run {rate:.6e} "
+          f"zone-updates/s against B1's {b1['kh']:.6e} (phase 13) on {smi}")
+    final, log, wall, samples, calls = drive_kh(
+        KH, V4.step_v4_strips_cuda, kh_argv + ["rk_order=2", "riemann=hllc"],
+        KH_RK2_STEPS, device)
+    check_kh(final, log, samples, calls, KH_N, KH_RK2_STEPS, "sharded_b9",
+             grain=LADDER_G, shards=ncard)
+    rate2 = KH_RK2_STEPS * KH_N * KH_N / wall
+    print(f"kh sharded N={KH_N} rk2 hllc float32: {KH_RK2_STEPS} steps in "
+          f"{calls} B9 launches, {wall:.4f} s wall; whole-run {rate2:.6e} "
+          f"zone-updates/s against B1's {b1['kh2']:.6e} on {smi}")
+    del final
+    print(f"phase 38: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 39: the bench-shaped rates (the ladder's path) --------------
+    t0 = time.perf_counter()
+    ub = bench_state(KH_N, device)
+    bench_kw = dict(cs2=0.1, dtdx=0.4, dtdy=0.4, theta=1.8)
+    wrappers = {"b9": V4.step_v4_strips_cuda, "b10a": V1.step_v1_cuda,
+                "b10b": V2.step_v2_strips_cuda, "b10c": V3.step_v3_strips_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    v4 = lambda n: V4.advance_n_v4(ub, n, G=LADDER_G, TX=LADDER_TX,
+                                   **bench_kw)
+    v3 = lambda n: V3.advance_n_v3(ub, n, G=LADDER_G, tile=LADDER_V3_TILE,
+                                   **bench_kw)
+    for f in (v4, v3):
+        check(bool(torch.isfinite(f(52)).all()), "non-finite bench state")
+    zps4, spread4, _ = marginal_rate(v4, KH_N * KH_N, 52, 4052)
+    zps3, spread3, _ = marginal_rate(v3, KH_N * KH_N, 52, 4052)
+    step_a = time_ms(lambda: V1.advance_n_v1(ub, 1, **bench_kw), 50)
+    step_b = time_ms(lambda: V2.advance_n_v2(ub, 1, tile=LADDER_V2_TILE,
+                                             **bench_kw), 50)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    launches["b9"] = b9_main
+    check(all(v > 0 for v in launches.values()),
+          f"a ladder kernel was not launched: {launches}")
+    print(f"bench-shaped rates (N={KH_N}, rk1 hlle float32, marginal 52 -> "
+          f"4052 steps, median of 5, G={LADDER_G}): B9 (TX={LADDER_TX}) "
+          f"{zps4:.6e} zone-updates/s (spread {100 * spread4:.1f}%), B10c "
+          f"(tile {LADDER_V3_TILE}) {zps3:.6e} ({100 * spread3:.1f}%), "
+          f"against B1's {b1['bench']:.6e} (phase 14); one step with its "
+          f"extension or strips: B10a {step_a:.4f} ms, B10b (tile "
+          f"{LADDER_V2_TILE}) {step_b:.4f} ms, B1 {b1['step_ms']:.4f} ms "
+          f"(phase 15); launches in this phase: B10a {launches['b10a']}, "
+          f"B10b {launches['b10b']}, B10c {launches['b10c']} (B9 "
+          f"{launches['b9']} on phase 38's main path) on {smi}")
+    del ub
+    print(f"phase 39: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 40: timing at 2048^2 float32 --------------------------------
+    t0 = time.perf_counter()
+    nx, ny = u.shape[1], u.shape[2]
+    G, h = LADDER_G, 2 * LADDER_G
+    lo, hi = V4.build_x_strips(u, LADDER_TX, h)
+    k4 = dict(base, G=G, TX=LADDER_TX)
+    ext = V1.extend_periodic(u)
+    s2 = V2.build_halo_strips(u, *LADDER_V2_TILE)
+    s3 = V2.build_halo_strips(u, *LADDER_V3_TILE, h=h)
+    (tx3, ty3) = LADDER_V3_TILE
+    timed = {
+        "b9": in_turns(lambda: V4.step_v4_strips_plain(u, lo, hi, **k4),
+                       lambda: V4.step_v4_strips_cuda(u, lo, hi, **k4), 2,
+                       20),
+        "b10a": in_turns(lambda: V1.step_v1_plain(ext, **base),
+                         lambda: V1.step_v1_cuda(ext, **base), 3, 50),
+        "b10b": in_turns(
+            lambda: V2.step_v2_strips_plain(u, *s2, tile=LADDER_V2_TILE,
+                                            **base),
+            lambda: V2.step_v2_strips_cuda(u, *s2, tile=LADDER_V2_TILE,
+                                           **base), 3, 50),
+        "b10c": in_turns(
+            lambda: V3.step_v3_strips_plain(u, *s3, G=G, tile=LADDER_V3_TILE,
+                                            **base),
+            lambda: V3.step_v3_strips_cuda(u, *s3, G=G, tile=LADDER_V3_TILE,
+                                           **base), 2, 20)}
+    bounds = {
+        "b9": ladder_bound((u, lo, hi, u), ny * nx // LADDER_TX
+                           * window_updates(LADDER_TX, h, G)),
+        "b10a": ladder_bound((ext, u), nx * ny),
+        "b10b": ladder_bound((u, *s2, u), nx * ny),
+        "b10c": ladder_bound((u, *s3, u), (nx // tx3) * (ny // ty3) * sum(
+            (tx3 + 2 * h - 4 * s) * (ty3 + 2 * h - 4 * s)
+            for s in range(1, G + 1)))}
+    steps = {"b9": G, "b10a": 1, "b10b": 1, "b10c": G}
+    for k, (ms, plain_ms, runs) in timed.items():
+        print(f"time {KH_N}^2 float32 rk1 hlle {k}: {ms:.4f} ms a call of "
+              f"{steps[k]} steps ({ms / steps[k]:.4f} ms a step) vs plain "
+              f"{plain_ms:.4f} ms (runs " + " ".join(f"{r:.4f}" for r in runs)
+              + f"); bound {bounds[k][0]:.4f} ms ({bounds[k][1]}); B1 "
+              f"{b1['step_ms']:.4f} ms a step (phase 15) on {smi}")
+    print(f"phase 40: {time.perf_counter() - t0:.1f} s")
+
+    names = {"b9": ("iso2d_step_v4 (B9)",
+                    "mara3_tpu/kernels/iso2d_step_v4.py:135"),
+             "b10a": ("iso2d_step v1 (B10a)",
+                      "mara3_tpu/kernels/iso2d_step.py:211"),
+             "b10b": ("iso2d_step_v2 (B10b)",
+                      "mara3_tpu/kernels/iso2d_step_v2.py:115"),
+             "b10c": ("iso2d_step_v3 (B10c)",
+                      "mara3_tpu/kernels/iso2d_step_v3.py:46")}
+    return [{"name": names[k][0], "route": "cuda",
+             "source": "mara3_tpu_torch/csrc/iso2d_ladder.cu",
+             "replaces": names[k][1], "launches": launches[k],
+             "max_abs_err": err[k], "ms": timed[k][0],
+             "plain_ms": timed[k][1], "bound_ms": bounds[k][0],
+             "bound_by": bounds[k][1], "library_ms": None} for k in keys]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -2100,7 +2444,7 @@ def main(argv=None) -> int:
     from mara3_tpu_torch.subprograms import sedov as SD
     sources = ("binary_advance", "binary_multi", "iso2d_step", "sedov_step",
                "cloud_update", "amrsand_step", "sand3d_step",
-               "binary_update", "binary_advance_strips")
+               "binary_update", "binary_advance_strips", "iso2d_ladder")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -2423,8 +2767,8 @@ def main(argv=None) -> int:
     # ---- phase 13: the kh main path ----------------------------------------
     TK.advance_cuda.launches = TM.advance_k_cuda.launches = 0
     kh_argv = ["kh", f"N={KH_N}"]
-    final, log, wall, samples, kh_b1 = drive_kh(KH, T1, kh_argv, KH_STEPS,
-                                                device)
+    final, log, wall, samples, kh_b1 = drive_kh(
+        KH, T1.advance_n_cuda, kh_argv, KH_STEPS, device)
     rates = check_kh(final, log, samples, kh_b1, KH_N, KH_STEPS,
                      "cuda_b1_rk1")
     check(TK.advance_cuda.launches == TM.advance_k_cuda.launches == 0,
@@ -2437,8 +2781,8 @@ def main(argv=None) -> int:
           f"{kh_rate:.6e} zone-updates/s ({kh_rate / 1e3:.2f} kzps); chunk "
           f"kzps median {statistics.median(rates):.2f} on {smi}")
     final, log, wall, samples, calls = drive_kh(
-        KH, T1, kh_argv + ["rk_order=2", "riemann=hllc"], KH_RK2_STEPS,
-        device)
+        KH, T1.advance_n_cuda, kh_argv + ["rk_order=2", "riemann=hllc"],
+        KH_RK2_STEPS, device)
     rates = check_kh(final, log, samples, calls, KH_N, KH_RK2_STEPS,
                      "cuda_b1_rk2")
     kh2_rate = KH_RK2_STEPS * KH_N * KH_N / wall
@@ -2470,6 +2814,7 @@ def main(argv=None) -> int:
         lambda: T1.advance_n_plain(u, 16, **kw),
         lambda: T1.advance_n_cuda(u, 16, **kw), 1, 10)
     b1_bnd = b1_bound(u, 16, 1, "hlle")
+    b1 = {"kh": kh_rate, "kh2": kh2_rate, "bench": zps, "step_ms": b1_step_ms}
     step_bound = b1_bound(u, 1, 1, "hlle")
     print(f"time {KH_N}^2 float32 rk1 hlle: B1 {b1_step_ms:.4f} ms a step "
           f"(one-step call) vs plain {b1_step_plain_ms:.4f} ms (runs "
@@ -2639,6 +2984,7 @@ def main(argv=None) -> int:
     b4 = cloud_phases(device, smi, args.profile)
     b67 = amr_phases(device, smi, args.profile)
     b11 = variant_phases(device, smi)
+    ladder = ladder_phases(device, smi, b1)
 
     print(json.dumps({"kernels": [
         {"name": "binary_advance (B2)", "route": "cuda",
@@ -2665,7 +3011,7 @@ def main(argv=None) -> int:
          "launches": b5_launches, "max_abs_err": b5_err,
          "ms": b5_ms, "plain_ms": b5_plain_ms, "bound_ms": b5_bnd[0],
          "bound_by": b5_bnd[1], "library_ms": None}, *b4, *b67,
-        *b11]}))
+        *b11, *ladder]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

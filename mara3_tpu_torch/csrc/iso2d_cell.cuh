@@ -1,0 +1,153 @@
+// The per-face and per-cell arithmetic of the periodic iso2d step (PLM with
+// sign-bit half-slopes, HLLE or HLLC, the conservative update), shared by
+// kernel B1 (iso2d_step.cu) and kernels B9, B10a-c (iso2d_ladder.cu).
+//
+// Each function copies the TPU kernels' own operation order
+// (mara3_tpu/kernels/iso2d_step.py: _plm_half, _hlle_1d, _hllc_1d; the
+// update of iso2d_step_v4._step_stripe), as the plain PyTorch versions in
+// mara3_tpu_torch/kernels/iso2d_step.py do. Built with --fmad=false, every
+// kernel that calls them rounds each cell as every other does, so B1, B9
+// and B10a-c agree bit for bit on the cells they share.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include <cmath>
+
+namespace iso2d {
+
+template <typename T>
+struct Params {
+  T cs2, cs, dtdx, dtdy, half_theta;
+};
+
+// The scalars in T: cast first, cs = sqrt(cs2) correctly rounded in T, and
+// 0.5 * theta formed in T, as the TPU kernels cast their scalar operands.
+template <typename T>
+Params<T> make_params(double cs2, double dtdx, double dtdy, double theta) {
+  Params<T> p;
+  p.cs2 = T(cs2);
+  p.cs = std::sqrt(p.cs2);
+  p.dtdx = T(dtdx);
+  p.dtdy = T(dtdy);
+  p.half_theta = T(0.5) * T(theta);
+  return p;
+}
+
+// 0.5 * the minmod slope: copysign(min |.|, a) when the three sign bits
+// agree, else 0 (mara3_tpu/kernels/iso2d_step.py::_plm_half)
+template <typename T>
+__device__ __forceinline__ T plm_half(T yl, T y0, T yr, T half_theta) {
+  const T a = (y0 - yl) * half_theta;
+  const T b = (yr - yl) * T(0.25);
+  const T c = (yr - y0) * half_theta;
+  const bool sa = signbit(a), sb = signbit(b), sc = signbit(c);
+  const T m = fmin(fmin(fabs(a), fabs(b)), fabs(c));
+  return (sa == sb && sb == sc) ? copysign(m, a) : T(0);
+}
+
+// HLLE flux along the face normal from (density, normal velocity,
+// transverse velocity) face states (iso2d_step.py::_hlle_1d)
+template <typename T>
+__device__ __forceinline__ void hlle(T sgl, T vnl, T vtl, T sgr, T vnr,
+                                     T vtr, const Params<T>& p, T f[3]) {
+  const T ap = fmax(fmax(vnl + p.cs, vnr + p.cs), T(0));
+  const T am = fmin(fmin(vnl - p.cs, vnr - p.cs), T(0));
+  const T ul1 = sgl * vnl, ul2 = sgl * vtl;
+  const T ur1 = sgr * vnr, ur2 = sgr * vtr;
+  const T pl = sgl * p.cs2, pr = sgr * p.cs2;
+  const T fl0 = vnl * sgl, fl1 = vnl * ul1 + pl, fl2 = vnl * ul2;
+  const T fr0 = vnr * sgr, fr1 = vnr * ur1 + pr, fr2 = vnr * ur2;
+  const T den = T(1) / (ap - am);
+  f[0] = (fl0 * ap - fr0 * am - (sgl - sgr) * ap * am) * den;
+  f[1] = (fl1 * ap - fr1 * am - (ul1 - ur1) * ap * am) * den;
+  f[2] = (fl2 * ap - fr2 * am - (ul2 - ur2) * ap * am) * den;
+}
+
+// HLLC flux, Toro 3rd ed. sec 10.6, isothermal (iso2d_step.py::_hllc_1d)
+template <typename T>
+__device__ __forceinline__ void hllc(T sgl, T vnl, T vtl, T sgr, T vnr,
+                                     T vtr, const Params<T>& p, T f[3]) {
+  const T cs = p.cs;
+  const T pl = sgl * p.cs2, pr = sgr * p.cs2;
+  const T ppvrs = T(0.5) * (pl + pr) - T(0.25) * (vnr - vnl) * (sgl + sgr) * cs;
+  const T pstar = fmax(ppvrs, T(0));
+  const T ql = fmax(sqrt(pstar / pl), T(1));
+  const T qr = fmax(sqrt(pstar / pr), T(1));
+  const T sl = vnl - cs * ql;
+  const T sr = vnr + cs * qr;
+  const T kl = sgl * (sl - vnl);
+  const T kr = sgr * (sr - vnr);
+  const T sstar = (pr - pl + vnl * kl - vnr * kr) / (kl - kr);
+  const T ul1 = sgl * vnl, ul2 = sgl * vtl;
+  const T ur1 = sgr * vnr, ur2 = sgr * vtr;
+  const T fl0 = vnl * sgl, fl1 = vnl * ul1 + pl, fl2 = vnl * ul2;
+  const T fr0 = vnr * sgr, fr1 = vnr * ur1 + pr, fr2 = vnr * ur2;
+  if (sl >= T(0)) {
+    f[0] = fl0; f[1] = fl1; f[2] = fl2;
+  } else if (sstar >= T(0)) {
+    const T dl = kl / (sl - sstar);
+    f[0] = fl0 + sl * (dl - sgl);
+    f[1] = fl1 + sl * (dl * sstar - ul1);
+    f[2] = fl2 + sl * (dl * vtl - ul2);
+  } else if (sr >= T(0)) {
+    const T dr = kr / (sr - sstar);
+    f[0] = fr0 + sr * (dr - sgr);
+    f[1] = fr1 + sr * (dr * sstar - ur1);
+    f[2] = fr2 + sr * (dr * vtr - ur2);
+  } else {
+    f[0] = fr0; f[1] = fr1; f[2] = fr2;
+  }
+}
+
+template <typename T, bool HLLC>
+__device__ __forceinline__ void riemann(T sgl, T vnl, T vtl, T sgr, T vnr,
+                                        T vtr, const Params<T>& p, T f[3]) {
+  if (HLLC) {
+    hllc(sgl, vnl, vtl, sgr, vnr, vtr, p, f);
+  } else {
+    hlle(sgl, vnl, vtl, sgr, vnr, vtr, p, f);
+  }
+}
+
+// The flux through the face between cells a and b, from the primitives
+// (sigma, vx, vy) of the four cells m, a, b, pp in a row along the face
+// normal: x (Y false) or y (Y true). For a y face the normal velocity is vy,
+// so the solver's normal-momentum flux is the y one.
+template <typename T, bool HLLC, bool Y>
+__device__ __forceinline__ void face_flux(const T m[3], const T a[3],
+                                          const T b[3], const T pp[3],
+                                          const Params<T>& p, T f[3]) {
+  T L[3], R[3];
+  for (int q = 0; q < 3; ++q) {
+    L[q] = a[q] + plm_half(m[q], a[q], b[q], p.half_theta);
+    R[q] = b[q] - plm_half(a[q], b[q], pp[q], p.half_theta);
+  }
+  if (Y) {
+    T g[3];
+    riemann<T, HLLC>(L[0], L[2], L[1], R[0], R[2], R[1], p, g);
+    f[0] = g[0];
+    f[1] = g[2];
+    f[2] = g[1];
+  } else {
+    riemann<T, HLLC>(L[0], L[1], L[2], R[0], R[1], R[2], p, f);
+  }
+}
+
+// The forward-Euler update of one component of a cell from its x faces
+// (left, right) and y faces (left, right)
+template <typename T>
+__device__ __forceinline__ T cell_update(T u, T fxl, T fxr, T fyl, T fyr,
+                                         const Params<T>& p) {
+  const T d = (fxr - fxl) * p.dtdx + (fyr - fyl) * p.dtdy;
+  return u - d;
+}
+
+__device__ __forceinline__ int wrap(int i, int n) {
+  const int r = i % n;
+  return r < 0 ? r + n : r;
+}
+
+}  // namespace iso2d

@@ -1,0 +1,443 @@
+// Kernels B9, B10a, B10b and B10c: the constant-cs^2 periodic iso2d step
+// (PLM + HLLE or HLLC, forward Euler or SSP-RK2) of the JAX package's
+// earlier uniform-grid kernels, on a state u [3, nx, ny] with y contiguous.
+//
+// Replaces (mara3_tpu/kernels/...):
+//   B9   iso2d_step_v4.py:135 pallas_step_v4_strips: G steps of full-width
+//        x-stripes of TX rows from the caller's x-halo strips lo, hi
+//        [nx / TX, 3, h, ny] (h = 2 G rk_order), y periodic; the kernel of
+//        kh's x-sharded run (parallel/iso2d_sharded.py);
+//   B10a iso2d_step.py:211 pallas_step: one rk1 HLLE step from the
+//        periodic guard-extended buffer [3, nx + 4, ny + 4];
+//   B10b iso2d_step_v2.py:115 pallas_step_v2: one rk1 HLLE step of tiles
+//        TX x TY from each tile's four halo strips (h = 2);
+//   B10c iso2d_step_v3.py:46 pallas_step_v3: G rk1 HLLE steps of such tiles
+//        from strips of h = 2 G.
+// Each computes what its plain version in kernels/iso2d_step_v{4,1,2,3}.py
+// computes, operation for operation, through the per-face and per-cell
+// functions of iso2d_cell.cuh that kernel B1 uses too.
+//
+// Bound. A step needs about 194 operations a cell with HLLE (212 with HLLC),
+// 0.024 ms at 2048^2 float32 at 33.5e12 operations a second (no FMAs under
+// --fmad=false); one pass over the state (read and write) is 0.030 ms. B10a
+// and B10b take one step a launch, so they are bound by that pass. B9 and
+// B10c take G steps for one pass, so the operations bind them, with the
+// halo's recomputation on top: the function updates each tile's (or
+// stripe's) window, which shrinks by 2 cells a side a stage.
+//
+// Design:
+//   - B10a: one thread a cell, reading the nine cells of its cross from the
+//     extended buffer in device memory and computing its four face fluxes
+//     itself (each face twice, once by each of its cells: the same inputs
+//     and operations, so the same bits);
+//   - B9, B10b, B10c: one CTA of 512 threads a CX x CY sub-tile of a stripe
+//     or strip tile (CX, CY chosen by the wrapper so the window fits in
+//     shared memory), never straddling two of them, so every halo value
+//     comes from that stripe's or tile's own strips, as on the TPU. The CTA
+//     loads its window, (CX + 2h) x (CY + 2h) conserved cells, into
+//     dynamic shared memory once, runs all G steps there (primitives, x and
+//     y face fluxes, the update in place; for rk2 the step's start is kept
+//     for the Heun average), the valid region shrinking by 2 a side a
+//     stage, and writes only the sub-tile. Device memory sees one read of
+//     the window and one write of the sub-tile per launch.
+//   - B10b is B10c's kernel at G = 1 (as v2 is v3 at G = 1 on the TPU).
+//   - The y halo of B9's window wraps periodically inside the stripe's rows
+//     (the TPU kernel's lane rolls); only x halos come from strips.
+
+#include <cuda_runtime.h>
+
+#include "iso2d_cell.cuh"
+
+extern __shared__ __align__(16) unsigned char ladder_smem[];
+
+namespace {
+
+using iso2d::Params;
+
+constexpr int kThreads = 512;       // B9, B10b, B10c
+constexpr int kCellRows = 8;        // B10a: a block of 8 x 32 cells
+constexpr int kCellCols = 32;
+
+// The window's arrays in dynamic shared memory, each [3][WX][WY]: the
+// conserved state U (updated in place), the primitives P, the x face
+// fluxes FX (face r between rows r - 1 and r), the y face fluxes FY (face
+// c between columns c - 1 and c), and for rk2 the step's start U0.
+template <typename T>
+struct Window {
+  T* U;
+  T* P;
+  T* FX;
+  T* FY;
+  T* U0;
+  int WX, WY;
+  __device__ __forceinline__ int at(int q, int r, int c) const {
+    return (q * WX + r) * WY + c;
+  }
+};
+
+// The cells k = threadIdx.x, threadIdx.x + blockDim.x, ... of a region nc
+// wide, in row-major order, as (r, c): one division when it starts, none a
+// step.
+struct Walk {
+  int r, c, dr, dc, nc;
+  __device__ __forceinline__ explicit Walk(int nc_) : nc(nc_) {
+    r = threadIdx.x / nc;
+    c = threadIdx.x % nc;
+    dr = blockDim.x / nc;
+    dc = blockDim.x % nc;
+  }
+  __device__ __forceinline__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= nc) {
+      c -= nc;
+      ++r;
+    }
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ Window<T> carve(int WX, int WY, bool rk2) {
+  T* base = reinterpret_cast<T*>(ladder_smem);
+  const int n = 3 * WX * WY;
+  Window<T> w;
+  w.U = base;
+  w.P = base + n;
+  w.FX = base + 2 * n;
+  w.FY = base + 3 * n;
+  w.U0 = rk2 ? base + 4 * n : nullptr;
+  w.WX = WX;
+  w.WY = WY;
+  return w;
+}
+
+// One forward-Euler stage of the valid region [r0, r1) x [c0, c1) of U:
+// afterwards [r0 + 2, r1 - 2) x [c0 + 2, c1 - 2) holds E(U), or with
+// `average` 0.5 * (U0 + E(U)).
+template <typename T, bool HLLC>
+__device__ void window_stage(const Window<T>& w, int r0, int r1, int c0,
+                             int c1, bool average, const Params<T>& p) {
+  const int nr = r1 - r0, nc = c1 - c0;
+  for (Walk k(nc); k.r < nr; k.next()) {
+    const int r = r0 + k.r, c = c0 + k.c;
+    const T sg = w.U[w.at(0, r, c)];
+    w.P[w.at(0, r, c)] = sg;
+    w.P[w.at(1, r, c)] = w.U[w.at(1, r, c)] / sg;
+    w.P[w.at(2, r, c)] = w.U[w.at(2, r, c)] / sg;
+  }
+  __syncthreads();
+  const int ir = nr - 4, ic = nc - 4;     // the rows, columns that survive
+  // x faces a in [r0 + 2, r1 - 1), on the surviving columns
+  for (Walk k(ic); k.r < nr - 3; k.next()) {
+    const int a = r0 + 2 + k.r, c = c0 + 2 + k.c;
+    T m[3], x0[3], x1[3], pp[3], f[3];
+    for (int q = 0; q < 3; ++q) {
+      m[q] = w.P[w.at(q, a - 2, c)];
+      x0[q] = w.P[w.at(q, a - 1, c)];
+      x1[q] = w.P[w.at(q, a, c)];
+      pp[q] = w.P[w.at(q, a + 1, c)];
+    }
+    iso2d::face_flux<T, HLLC, false>(m, x0, x1, pp, p, f);
+    for (int q = 0; q < 3; ++q) w.FX[w.at(q, a, c)] = f[q];
+  }
+  // y faces b in [c0 + 2, c1 - 1), on the surviving rows
+  for (Walk k(nc - 3); k.r < ir; k.next()) {
+    const int r = r0 + 2 + k.r, b = c0 + 2 + k.c;
+    T m[3], y0[3], y1[3], pp[3], f[3];
+    for (int q = 0; q < 3; ++q) {
+      m[q] = w.P[w.at(q, r, b - 2)];
+      y0[q] = w.P[w.at(q, r, b - 1)];
+      y1[q] = w.P[w.at(q, r, b)];
+      pp[q] = w.P[w.at(q, r, b + 1)];
+    }
+    iso2d::face_flux<T, HLLC, true>(m, y0, y1, pp, p, f);
+    for (int q = 0; q < 3; ++q) w.FY[w.at(q, r, b)] = f[q];
+  }
+  __syncthreads();
+  for (Walk k(ic); k.r < ir; k.next()) {
+    const int r = r0 + 2 + k.r, c = c0 + 2 + k.c;
+    for (int q = 0; q < 3; ++q) {
+      const T e = iso2d::cell_update(w.U[w.at(q, r, c)], w.FX[w.at(q, r, c)],
+                                     w.FX[w.at(q, r + 1, c)],
+                                     w.FY[w.at(q, r, c)],
+                                     w.FY[w.at(q, r, c + 1)], p);
+      w.U[w.at(q, r, c)] = average ? T(0.5) * (w.U0[w.at(q, r, c)] + e) : e;
+    }
+  }
+  __syncthreads();
+}
+
+// G steps of the window [0, wx) x [0, wy) loaded in U: rk 1, or SSP-RK2
+// (u + E(E(u))) / 2. The result is U's region [h, wx - h) x [h, wy - h),
+// h = 2 G rk.
+template <typename T, bool HLLC>
+__device__ void window_steps(const Window<T>& w, int wx, int wy, int G,
+                             int rk, const Params<T>& p) {
+  int r0 = 0, r1 = wx, c0 = 0, c1 = wy;
+  for (int g = 0; g < G; ++g) {
+    if (rk == 2) {
+      // the step's start, where the step's result lands
+      const int nr = r1 - r0 - 8;
+      for (Walk k(c1 - c0 - 8); k.r < nr; k.next()) {
+        const int r = r0 + 4 + k.r, c = c0 + 4 + k.c;
+        for (int q = 0; q < 3; ++q) w.U0[w.at(q, r, c)] = w.U[w.at(q, r, c)];
+      }
+      window_stage<T, HLLC>(w, r0, r1, c0, c1, false, p);
+      r0 += 2; r1 -= 2; c0 += 2; c1 -= 2;
+    }
+    window_stage<T, HLLC>(w, r0, r1, c0, c1, rk == 2, p);
+    r0 += 2; r1 -= 2; c0 += 2; c1 -= 2;
+  }
+}
+
+// B9: the CTA's sub-tile is rows [li0, li0 + cx) of stripe s and columns
+// [j0, j0 + cy); its window's rows below and above the stripe come from
+// lo[s], hi[s] [3, h, ny], its columns wrap in y.
+template <typename T, bool HLLC>
+__global__ void __launch_bounds__(kThreads)
+stripes_kernel(const T* __restrict__ u, const T* __restrict__ lo,
+               const T* __restrict__ hi, T* __restrict__ out, int nx, int ny,
+               int TX, int h, int G, int rk, int CX, int CY, int subx,
+               Params<T> p) {
+  const int s = blockIdx.y / subx, li0 = (blockIdx.y % subx) * CX;
+  const int j0 = blockIdx.x * CY;
+  const int cx = min(CX, TX - li0), cy = min(CY, ny - j0);
+  const int wx = cx + 2 * h, wy = cy + 2 * h;
+  const Window<T> w = carve<T>(CX + 2 * h, CY + 2 * h, rk == 2);
+  const long long plane = (long long)nx * ny;
+  const long long strip = (long long)h * ny;
+  for (Walk k(wy); k.r < wx; k.next()) {
+    const int a = k.r, b = k.c;
+    const int x = li0 + a - h;
+    int y = j0 + b - h;
+    if (y < 0 || y >= ny) y = iso2d::wrap(y, ny);
+    for (int q = 0; q < 3; ++q) {
+      const long long sq = (long long)(s * 3 + q) * strip;
+      T v;
+      if (x < 0) {
+        v = lo[sq + (long long)(x + h) * ny + y];
+      } else if (x >= TX) {
+        v = hi[sq + (long long)(x - TX) * ny + y];
+      } else {
+        v = u[q * plane + (long long)(s * TX + x) * ny + y];
+      }
+      w.U[w.at(q, a, b)] = v;
+    }
+  }
+  __syncthreads();
+  window_steps<T, HLLC>(w, wx, wy, G, rk, p);
+  for (Walk k(cy); k.r < cx; k.next()) {
+    const int a = k.r, b = k.c;
+    const long long c = (long long)(s * TX + li0 + a) * ny + j0 + b;
+    for (int q = 0; q < 3; ++q) out[q * plane + c] = w.U[w.at(q, h + a, h + b)];
+  }
+}
+
+// B10b, B10c: the CTA's sub-tile is rows [li0, li0 + cx) and columns
+// [lj0, lj0 + cy) of tile (ti, tj); its window's halo comes from the tile's
+// strips: north, south [gi, gj, 3, h, TY + 2h] (rows above and below, the
+// corners included), west, east [gi, gj, 3, TX, h].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tiles_kernel(const T* __restrict__ u, const T* __restrict__ north,
+             const T* __restrict__ south, const T* __restrict__ west,
+             const T* __restrict__ east, T* __restrict__ out, int nx, int ny,
+             int TX, int TY, int h, int G, int CX, int CY, int subx, int suby,
+             Params<T> p) {
+  const int gj = ny / TY;
+  const int ti = blockIdx.y / subx, li0 = (blockIdx.y % subx) * CX;
+  const int tj = blockIdx.x / suby, lj0 = (blockIdx.x % suby) * CY;
+  const int cx = min(CX, TX - li0), cy = min(CY, TY - lj0);
+  const int wx = cx + 2 * h, wy = cy + 2 * h;
+  const Window<T> w = carve<T>(CX + 2 * h, CY + 2 * h, false);
+  const long long plane = (long long)nx * ny;
+  const long long tile = (long long)ti * gj + tj;
+  const int ns = TY + 2 * h;      // a north or south strip's row
+  for (Walk k(wy); k.r < wx; k.next()) {
+    const int a = k.r, b = k.c;
+    const int x = li0 + a - h, y = lj0 + b - h;
+    for (int q = 0; q < 3; ++q) {
+      const long long tq = tile * 3 + q;
+      T v;
+      if (x < 0) {
+        v = north[(tq * h + x + h) * ns + y + h];
+      } else if (x >= TX) {
+        v = south[(tq * h + x - TX) * ns + y + h];
+      } else if (y < 0) {
+        v = west[(tq * TX + x) * h + y + h];
+      } else if (y >= TY) {
+        v = east[(tq * TX + x) * h + y - TY];
+      } else {
+        v = u[q * plane + (long long)(ti * TX + x) * ny + tj * TY + y];
+      }
+      w.U[w.at(q, a, b)] = v;
+    }
+  }
+  __syncthreads();
+  window_steps<T, false>(w, wx, wy, G, 1, p);
+  for (Walk k(cy); k.r < cx; k.next()) {
+    const int a = k.r, b = k.c;
+    const long long c =
+        (long long)(ti * TX + li0 + a) * ny + tj * TY + lj0 + b;
+    for (int q = 0; q < 3; ++q) out[q * plane + c] = w.U[w.at(q, h + a, h + b)];
+  }
+}
+
+// (sigma, vx, vy) of the extended buffer's cell (r, c)
+template <typename T>
+__device__ __forceinline__ void prim_at(const T* __restrict__ ext,
+                                        long long plane, int NY, int r, int c,
+                                        T P[3]) {
+  const long long k = (long long)r * NY + c;
+  const T sg = ext[k];
+  P[0] = sg;
+  P[1] = ext[plane + k] / sg;
+  P[2] = ext[2 * plane + k] / sg;
+}
+
+// B10a: one thread a cell (i, j), at (i + 2, j + 2) of ext [3, nx+4, ny+4]
+template <typename T>
+__global__ void __launch_bounds__(kCellRows * kCellCols)
+cell_kernel(const T* __restrict__ ext, T* __restrict__ out, int nx, int ny,
+            Params<T> p) {
+  const int j = blockIdx.x * kCellCols + threadIdx.x % kCellCols;
+  const int i = blockIdx.y * kCellRows + threadIdx.x / kCellCols;
+  if (i >= nx || j >= ny) return;
+  const int NY = ny + 4;
+  const long long plane = (long long)(nx + 4) * NY;
+  T X[5][3], Y[5][3];       // the cells i - 2 .. i + 2 and j - 2 .. j + 2
+  for (int d = 0; d < 5; ++d) {
+    prim_at(ext, plane, NY, i + d, j + 2, X[d]);
+    prim_at(ext, plane, NY, i + 2, j + d, Y[d]);
+  }
+  T fxl[3], fxr[3], fyl[3], fyr[3];
+  iso2d::face_flux<T, false, false>(X[0], X[1], X[2], X[3], p, fxl);
+  iso2d::face_flux<T, false, false>(X[1], X[2], X[3], X[4], p, fxr);
+  iso2d::face_flux<T, false, true>(Y[0], Y[1], Y[2], Y[3], p, fyl);
+  iso2d::face_flux<T, false, true>(Y[1], Y[2], Y[3], Y[4], p, fyr);
+  const long long c = (long long)(i + 2) * NY + j + 2;
+  const long long o = (long long)i * ny + j;
+  for (int q = 0; q < 3; ++q) {
+    out[q * (long long)nx * ny + o] = iso2d::cell_update(
+        ext[q * plane + c], fxl[q], fxr[q], fyl[q], fyr[q], p);
+  }
+}
+
+// dynamic shared memory of a window kernel's CTA
+template <typename T>
+size_t window_bytes(int CX, int CY, int h, int rk) {
+  return size_t(rk == 2 ? 5 : 4) * 3 * (CX + 2 * h) * (CY + 2 * h) *
+         sizeof(T);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T>
+int b9(const T* u, const T* lo, const T* hi, T* out, int nx, int ny, int TX,
+       int G, int rk, int hllc, int CX, int CY, double cs2, double dtdx,
+       double dtdy, double theta, void* stream) {
+  const Params<T> p = iso2d::make_params<T>(cs2, dtdx, dtdy, theta);
+  const int h = 2 * G * rk;
+  const int subx = (TX + CX - 1) / CX;
+  const dim3 grid((ny + CY - 1) / CY, (nx / TX) * subx);
+  const size_t bytes = window_bytes<T>(CX, CY, h, rk);
+  const auto kernel = hllc ? stripes_kernel<T, true> : stripes_kernel<T, false>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      u, lo, hi, out, nx, ny, TX, h, G, rk, CX, CY, subx, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int b10_tiles(const T* u, const T* north, const T* south, const T* west,
+              const T* east, T* out, int nx, int ny, int TX, int TY, int G,
+              int CX, int CY, double cs2, double dtdx, double dtdy,
+              double theta, void* stream) {
+  const Params<T> p = iso2d::make_params<T>(cs2, dtdx, dtdy, theta);
+  const int h = 2 * G;
+  const int subx = (TX + CX - 1) / CX, suby = (TY + CY - 1) / CY;
+  const dim3 grid((ny / TY) * suby, (nx / TX) * subx);
+  const size_t bytes = window_bytes<T>(CX, CY, h, 1);
+  cudaError_t err = allow_smem(tiles_kernel<T>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tiles_kernel<T><<<grid, kThreads, bytes,
+                    static_cast<cudaStream_t>(stream)>>>(
+      u, north, south, west, east, out, nx, ny, TX, TY, h, G, CX, CY, subx,
+      suby, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int b10a(const T* ext, T* out, int nx, int ny, double cs2, double dtdx,
+         double dtdy, double theta, void* stream) {
+  const Params<T> p = iso2d::make_params<T>(cs2, dtdx, dtdy, theta);
+  const dim3 grid((ny + kCellCols - 1) / kCellCols,
+                  (nx + kCellRows - 1) / kCellRows);
+  cell_kernel<T><<<grid, kCellRows * kCellCols, 0,
+                   static_cast<cudaStream_t>(stream)>>>(ext, out, nx, ny, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* ladder_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// B9: G steps of u [3, nx, ny] (nx % TX == 0) into out from the strips lo,
+// hi [nx / TX, 3, 2 G rk, ny]; rk 1 or 2, hllc 0 or 1; CTA sub-tiles of
+// CX x CY. Returns a cudaError_t.
+int b9_strips_f32(const float* u, const float* lo, const float* hi,
+                  float* out, int nx, int ny, int TX, int G, int rk, int hllc,
+                  int CX, int CY, double cs2, double dtdx, double dtdy,
+                  double theta, void* stream) {
+  return b9<float>(u, lo, hi, out, nx, ny, TX, G, rk, hllc, CX, CY, cs2,
+                   dtdx, dtdy, theta, stream);
+}
+
+int b9_strips_f64(const double* u, const double* lo, const double* hi,
+                  double* out, int nx, int ny, int TX, int G, int rk,
+                  int hllc, int CX, int CY, double cs2, double dtdx,
+                  double dtdy, double theta, void* stream) {
+  return b9<double>(u, lo, hi, out, nx, ny, TX, G, rk, hllc, CX, CY, cs2,
+                    dtdx, dtdy, theta, stream);
+}
+
+// B10a: one rk1 HLLE step from ext [3, nx + 4, ny + 4] into out [3, nx, ny]
+int b10a_step_f32(const float* ext, float* out, int nx, int ny, double cs2,
+                  double dtdx, double dtdy, double theta, void* stream) {
+  return b10a<float>(ext, out, nx, ny, cs2, dtdx, dtdy, theta, stream);
+}
+
+int b10a_step_f64(const double* ext, double* out, int nx, int ny, double cs2,
+                  double dtdx, double dtdy, double theta, void* stream) {
+  return b10a<double>(ext, out, nx, ny, cs2, dtdx, dtdy, theta, stream);
+}
+
+// B10b (G = 1) and B10c: G rk1 HLLE steps of the tiles TX x TY of u from
+// their strips of h = 2 G (build_halo_strips), CTA sub-tiles CX x CY
+int b10_tiles_f32(const float* u, const float* north, const float* south,
+                  const float* west, const float* east, float* out, int nx,
+                  int ny, int TX, int TY, int G, int CX, int CY, double cs2,
+                  double dtdx, double dtdy, double theta, void* stream) {
+  return b10_tiles<float>(u, north, south, west, east, out, nx, ny, TX, TY,
+                          G, CX, CY, cs2, dtdx, dtdy, theta, stream);
+}
+
+int b10_tiles_f64(const double* u, const double* north, const double* south,
+                  const double* west, const double* east, double* out, int nx,
+                  int ny, int TX, int TY, int G, int CX, int CY, double cs2,
+                  double dtdx, double dtdy, double theta, void* stream) {
+  return b10_tiles<double>(u, north, south, west, east, out, nx, ny, TX, TY,
+                           G, CX, CY, cs2, dtdx, dtdy, theta, stream);
+}
+
+}  // extern "C"

@@ -9,7 +9,14 @@ between two scheduled outputs is one call of the advance:
 - fast_step=-1 (auto): kernel B1 (kernels/iso2d_step.py, csrc/iso2d_step.cu)
   on a CUDA device, the scheme (schemes/iso2d_grid.py) on the CPU;
 - fast_step=1: B1, whose plain PyTorch version runs on the CPU;
-- fast_step=0: the scheme on the run's device.
+- fast_step=0: the scheme on the run's device;
+- shards=N (N != 0): the x-sharded run (make_sharded_advance,
+  parallel/iso2d_sharded.py): N x-slabs, each advanced by kernel B9
+  (kernels/iso2d_step_v4.py, csrc/iso2d_ladder.cu) in grains of G = 4
+  steps, with edge strips copied from the neighbor slabs. shards=-1 takes
+  every CUDA card; on the CPU the N slabs share the CPU (B9's plain version
+  runs on each), as the JAX package's tests share 8 virtual CPU devices.
+  fast_step is not read then, as in the JAX package.
 
 B1 takes any step count and any N >= 4 in one call, so no remainder runs
 through the scheme, and the JAX package's fallback chain (v5, v4, then the
@@ -18,8 +25,8 @@ scheme) is not carried over: a kernel that fails raises. kh keeps the state
 it to [3, N, N] and back, so a chunk copies the state twice.
 
 precision: "" is float32 unless the caller passes a dtype (the tests pass
-float64); f32 and f64 are honoured; bf16 and shards != 0 raise
-NotImplementedError naming the ROADMAP.md item that will port them.
+float64); f32 and f64 are honoured; bf16 raises NotImplementedError naming
+the ROADMAP.md item that will port it.
 
 Setup: density band sigma1 inside |y - 1/2| < 1/4 (else sigma0) moving at
 +mach*cs, the rest at -mach*cs, with a small sinusoidal vy seed at both
@@ -78,7 +85,10 @@ def config_template():
             # -1 auto (kernel B1 on a CUDA device, the scheme on the CPU),
             # 0 the scheme, 1 kernel B1 (its plain version on the CPU)
             .item("fast_step", -1)
-            # multi-chip x-sharding: not ported yet, must stay 0
+            # x-shard the grid over this many devices and advance each slab
+            # with kernel B9, halos copied from the neighbor slabs
+            # (parallel/iso2d_sharded.py). 0 = off, -1 = every CUDA card
+            # (one shard on the CPU); on the CPU N shards share the CPU
             .item("shards", 0))
 
 
@@ -95,10 +105,6 @@ def check_options(cfg):
     if cfg.get_string("precision") == "bf16":
         raise NotImplementedError(
             "kh precision=bf16 is not ported yet: ROADMAP.md queue A item 13")
-    if cfg.get_int("shards") != 0:
-        raise NotImplementedError(
-            "kh shards != 0 (the x-sharded run with kernel B9) is not ported "
-            "yet: ROADMAP.md queue A item 11")
 
 
 def resolve_dtype(cfg, dtype=None) -> torch.dtype:
@@ -157,7 +163,7 @@ def fixed_timestep(cfg, u0) -> float:
 # advance: kernel B1, or the scheme
 # -----------------------------------------------------------------------------
 
-LAST_PATH = "unset"   # what the last advance_n ran, e.g. cuda_b1_rk1[11]
+LAST_PATH = "unset"   # what the last chunk ran, e.g. cuda_b1_rk1[11]
 
 
 def _advance_scheme(u, n: int, cs2: float, dx: float, dy: float, dt: float,
@@ -189,6 +195,64 @@ def advance_n(u, n: int, *, cs2: float, dx: float, dy: float, dt: float,
                               riemann=riemann)
     where = "cuda" if u.device.type == "cuda" else "plain"
     LAST_PATH = f"{where}_b1_rk{rk_order}[{n}]"
+    return uT.permute(1, 2, 0).contiguous()
+
+
+def _pick_tx(nx: int):
+    """The JAX package's stripe width for a slab of nx rows (kh.py:148-156):
+    it decides which shard counts run (2 G rk_order <= TX), so it is kept;
+    the widths do not change the result."""
+    for tx in (256, 512, 128, 64, 32, 16, 8):
+        if nx % tx == 0 and (nx // tx) % 2 == 0:
+            return tx
+    return None
+
+
+def make_sharded_advance(cfg, dt: float, device):
+    """The x-sharded advance of kh.py:240-276: `shards` slabs of the [3, N,
+    N] state, kernel B9 on each in grains of G = 4 steps. Returns
+    (advance(shards, n), devices, G). On a CUDA device shards=-1 takes
+    every card and more shards than cards raise; on the CPU shards=-1 is
+    one shard and N shards share the CPU. The JAX package's TPU layout rules
+    (N % 128, TX % 8) are not kept."""
+    from mara3_tpu_torch.parallel import iso2d_sharded
+    shards = cfg.get_int("shards")
+    device = torch.device(device)
+    if device.type == "cuda":
+        count = torch.cuda.device_count()
+        ndev = count if shards < 0 else shards
+        if ndev > count:
+            raise ValueError(f"shards={ndev} but only {count} devices")
+        devices = [torch.device("cuda", k) for k in range(ndev)]
+    else:
+        ndev = 1 if shards < 0 else shards
+        devices = [device] * ndev
+    n = cfg.get_int("N")
+    if ndev < 1 or n % ndev:
+        raise ValueError(f"N={n} not divisible by shards={ndev}")
+    tx = _pick_tx(n // ndev) or (n // ndev)
+    G = 4
+    rk = cfg.get_int("rk_order")
+    if 2 * G * rk > tx:
+        raise ValueError(
+            f"sharded rk_order={rk} needs stripe width >= {2 * G * rk} "
+            f"(local width {n // ndev} gives TX={tx}); use fewer shards")
+    adv = iso2d_sharded.make_advance_v4_sharded(
+        devices, G=G, cs2=cfg.get_double("cs") ** 2, dtdx=dt * n,
+        dtdy=dt * n, theta=cfg.get_double("plm_theta"), TX=tx,
+        rk_order=rk, riemann=cfg.get_string("riemann"))
+    return adv, devices, G
+
+
+def advance_sharded(u, n: int, advance, devices):
+    """n steps of u [N, N, 3] through a sharded advance (n a multiple of
+    its G): u's [3, N, N] image split over `devices`, advanced, and
+    gathered back on u's device."""
+    global LAST_PATH
+    from mara3_tpu_torch.parallel import iso2d_sharded
+    shards = iso2d_sharded.shard_state(u.permute(2, 0, 1), devices)
+    uT = iso2d_sharded.gather_state(advance(shards, n), u.device)
+    LAST_PATH = f"sharded_b9[{len(devices)}dev]"
     return uT.permute(1, 2, 0).contiguous()
 
 
@@ -374,7 +438,13 @@ def setup(argv, *, device=None, dtype=None):
     kernel = advance_kwargs(cfg, solution.dt)["kernel"]
     if kernel is None:
         kernel = device.type == "cuda"
-    if not kernel:
+    if cfg.get_int("shards") != 0:
+        _, devices, _ = make_sharded_advance(cfg, solution.dt, device)
+        kind = ("CUDA kernel B9" if device.type == "cuda"
+                else "kernel B9's plain version")
+        where = (f"{kind} x-sharded over {len(devices)} shards on "
+                 f"{device.type} (edge strips copied from the neighbors)")
+    elif not kernel:
         where = f"the scheme (torch ops) on {device.type}"
     elif device.type == "cuda":
         where = f"CUDA kernel B1 on {torch.cuda.get_device_name(device)}"
@@ -389,12 +459,15 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     """The driver loop until tfinal, with `tasks(state, cfg)` for the
     checkpoints, diagnostics and time series: each chunk of steps lands
     exactly on the next scheduled output (or tfinal) and is one call of
-    advance_n. Prints kzps per chunk; returns the final state. Raises
-    driver.NonFiniteState if a write or the end finds the state not
-    finite."""
+    advance_n; sharded (shards != 0), each chunk is rounded up to whole
+    grains of G steps and is one call of the sharded advance. Prints kzps
+    per chunk; returns the final state. Raises driver.NonFiniteState if a
+    write or the end finds the state not finite."""
     s = state.solution
     n = cfg.get_int("N")
     kw = advance_kwargs(cfg, s.dt)
+    sharded = (make_sharded_advance(cfg, s.dt, s.conserved.device)
+               if cfg.get_int("shards") != 0 else None)
     intervals = [("write_checkpoint", cfg.get_double("cpi")),
                  ("write_diagnostics", cfg.get_double("dfi")),
                  ("write_time_series", cfg.get_double("tsi"))]
@@ -410,7 +483,15 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
                 n_run = min(n_run, max(1, int(math.ceil(
                     (due - s.time) / s.dt - eps))))
         t0 = _time.perf_counter()
-        u1 = advance_n(s.conserved, n_run, **kw)
+        if sharded is None:
+            u1 = advance_n(s.conserved, n_run, **kw)
+        else:
+            # the sharded kernel advances in grain-sized groups; rounding
+            # up keeps 'first time >= due' (tasks fire at the next loop
+            # top, like a fixed-dt overshoot), as in the JAX package
+            advance, devices, grain = sharded
+            n_run = grain * math.ceil(n_run / grain)
+            u1 = advance_sharded(s.conserved, n_run, advance, devices)
         if u1.is_cuda:
             torch.cuda.synchronize(u1.device)
         ms = (_time.perf_counter() - t0) * 1e3

@@ -240,8 +240,9 @@ def test_no_jax_in_the_port():
     advances (kernels B11a-c's plain versions), a regrid, a sedov SRHD step of
     kernel B5's plain version, two cloud steps of kernel B4d's plain
     version, and two amrsand and two sand3d steps of kernels B6's and B7's
-    plain versions, loads neither jax nor the JAX package, and no source
-    file of the port imports them."""
+    plain versions, a sharded kh advance (B9's plain version) and a step of
+    B10a-c's, loads neither jax nor the JAX package, and no source file of
+    the port imports them."""
     code = (
         "import sys, torch\n"
         "from mara3_tpu_torch.subprograms import binary as B\n"
@@ -292,6 +293,18 @@ def test_no_jax_in_the_port():
         " B.bodies_array(B.two_body.compute_two_body_state("
         "B.create_solution(cfg, sd).orbital_elements, 0.0)), 1e-3, 1.8)\n"
         "B.apply_regrid(B.create_solution(cfg, sd), sd, cfg.set('depth', 3))\n"
+        "from mara3_tpu_torch.subprograms import kh as KH\n"
+        "from mara3_tpu_torch.kernels import iso2d_step_v1 as V1,"
+        " iso2d_step_v2 as V2, iso2d_step_v3 as V3\n"
+        "kc = KH.config_template().create().update({'N': 16, 'shards': 2})\n"
+        "adv, devs, g = KH.make_sharded_advance(kc, 1e-3, 'cpu')\n"
+        "KH.advance_sharded(KH.initial_conserved(kc), 4, adv, devs)\n"
+        "assert KH.LAST_PATH == 'sharded_b9[2dev]', KH.LAST_PATH\n"
+        "v = KH.initial_conserved(kc).permute(2, 0, 1).contiguous()\n"
+        "V1.advance_n_v1(v, 1, cs2=1.0, dtdx=0.1, dtdy=0.1)\n"
+        "V2.advance_n_v2(v, 1, cs2=1.0, dtdx=0.1, dtdy=0.1, tile=(8, 8))\n"
+        "V3.advance_n_v3(v, 2, G=2, cs2=1.0, dtdx=0.1, dtdy=0.1,"
+        " tile=(8, 8))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mara3_tpu' or m.startswith('mara3_tpu.')]\n"
         "assert not bad, bad\n"
