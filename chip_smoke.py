@@ -11,7 +11,7 @@ exits non-zero and prints no result):
    binary_multi.cu (B3), iso2d_step.cu (B1), sedov_step.cu (B5),
    cloud_update.cu (B4), amrsand_step.cu (B6), sand3d_step.cu (B7),
    binary_update.cu (B11a, B11b), binary_advance_strips.cu (B11c) and
-   iso2d_ladder.cu (B9, B10a-c), one nvcc each, started together;
+   iso2d_ladder.cu (B8, B9, B10a-c), one nvcc each, started together;
 3. B2 parity: kernel B2 against its plain PyTorch version on the card, at
    depth 3 / block 16 over {conserve_linear_p} x {hlle, hllc} x {plm, pcm}
    and at the main path's shape (depth 6 / block 96), each in float64 at
@@ -169,6 +169,30 @@ exits non-zero and prints no result):
 40. timing at 2048^2 float32, in turns: B9 (4 steps a call), B10a, B10b
    and B10c (4 steps a call) against their plain versions, beside the
    bound; each new phase prints its wall time;
+41. B8 parity: kernel B8 (csrc/iso2d_ladder.cu, the locally isothermal
+   window step) against its plain version, G in {1, 2, 4} at 96 x 160 in
+   tiles of 32 x 32, in a domain beside the origin and one across r = 0,
+   with periodic and with random strips, and at the kernel sweep's 8192^2
+   (tile 128 x 512, G = 4); float64 at the CPU bars and float32 at 64 ulps
+   of each cell, with the count of cases that are bit for bit;
+42. B8's path: benchmarks/bench_kernel_sweep.py's lig4 rung (copied here:
+   the benchmark imports JAX) at n = 8192 through advance_n_li, the
+   marginal rate between 20 and 420 steps, median of 5 pairs by CUDA
+   events, every B8 launch counted, the mass conserved; its v3g4 rung
+   (B10c) beside it;
+43. timing at 8192^2 float32, in turns: B8 and its plain version per
+   4-step call, beside the bound; B10c and the strips' build beside them;
+44. blast3d card against CPU: ``blast3d depth=3 block_size=8 tfinal=0.06
+   dfi=0.03`` in float64, the same windows, the state at rtol 1e-12;
+45. blast3d main path: ``blast3d depth=4 block_size=16`` with the defaults
+   (344 blocks of 16^3, float32, to t = 0.25) through blast3d.setup() and
+   blast3d.run(): the whole-run rate, each window's steps and wall time,
+   the finite end and the drift of the totals (blast3d has no kernel in
+   either package: its step is torch ops on the card);
+46. benchmarks/bench_blast3d.py's protocol at depths 3 and 4, block 16:
+   the marginal rate between 100 and 300 steps at dt = 0.1 dx_min / a0 /
+   3, median of 3 pairs, the totals' drift, and a step's device kernels
+   and busy share under torch.profiler;
 
 then prints one JSON line describing the kernels and, last, the ok line.
 ``--profile PATH`` also writes torch.profiler tables of a d6b96 B2 advance,
@@ -479,6 +503,42 @@ LADDER_V2_TILE, LADDER_V3_TILE = (256, 512), (64, 1024)
 # against CPU, three grains
 SHARDED_STEPS = 64
 KH_SHARDED_CPU_STEPS = 12
+
+# Kernel B8 (csrc/iso2d_ladder.cu, the locally isothermal window step) does
+# B10c's arithmetic per cell and stage (B1_OPS_CELL_STAGE["hlle"]) and, at
+# each of a cell's two faces, forms the face's sound speed: cs^2 = 1 / (M^2
+# sqrt(x^2 + y^2 + r_s^2)) 7 (two products, two sums, the sqrt, the product
+# with M^2, the division) and cs = sqrt(cs^2) 1. A face's wrapped
+# coordinates depend on its row or its column alone (16 a line of faces:
+# the position 3 and the wrap 5 an axis), so they count none, and the count
+# errs low, as above.
+B8_OPS_FACE = 8
+# phases 41-43: benchmarks/bench_kernel_sweep.py's lig4 rung (:82-87,
+# :135-142): n = 8192, tile 128 x 512, G = 4, geom (1/n, 1, 1, 1, 1, 100,
+# 1e-4), dt = 1e-5, the marginal between 20 and 420 steps; its v3g4 rung
+# (cs^2 0.01) beside it
+LI_N, LI_TILE, LI_G = 8192, (128, 512), 4
+LI_DT = 1e-5
+LI_MARGINAL = (20, 420)
+# phase 41's odd shape (no TPU rule allows it) in tiles of 32 x 32, in a
+# domain beside the origin and in one that straddles r = 0 (r_s^2 matters
+# there), Lx != Ly in both
+LI_ODD, LI_ODD_TILE = (96, 160), (32, 32)
+LI_ODD_GEOMS = ((1 / 96, 1.0, 1.0, 1.0, 160 / 96, 100.0, 1e-4),
+                (1 / 96, -0.5, -0.75, 1.0, 160 / 96, 100.0, 1e-2))
+# phases 44-46: blast3d (no kernel in either package). Card against CPU at
+# tests/test_torch_blast3d.py's run and bar; the main path, BASELINE.md:526-
+# 535's blast3d_d4b16 product run (344 blocks of 16^3 to t = 0.25 with the
+# defaults); benchmarks/bench_blast3d.py's protocol (depths 3 and 4, block
+# 16, the marginal between 100 and 300 steps at dt = 0.1 dx_min / a0 / 3,
+# the totals' drift under 1e-4 of the larger of mass and energy)
+BLAST_CPU_ARGS = ["blast3d", "depth=3", "block_size=8", "tfinal=0.06",
+                  "dfi=0.03"]
+BLAST_RUN = dict(rtol=1e-12, atol=1e-14)
+BLAST_DEPTH, BLAST_BS = 4, 16
+BLAST_BENCH_DEPTHS = (3, 4)
+BLAST_MARGINAL = (100, 300)
+BLAST_DRIFT = 1e-4
 
 
 class PhaseError(RuntimeError):
@@ -2126,12 +2186,14 @@ def window_updates(extent, h, stages):
     return sum(extent + 2 * h - 4 * s for s in range(1, stages + 1))
 
 
-def ladder_bound(tensors, updates, rk2_averages=0, riemann="hlle"):
+def ladder_bound(tensors, updates, rk2_averages=0, riemann="hlle",
+                 face_ops=0):
     """(ms, "bytes" or "operations"): the least time for a ladder kernel's
     call that reads and writes `tensors` once each and does `updates`
-    cell-stage updates and `rk2_averages` Heun averages."""
+    cell-stage updates (with `face_ops` more at each of a cell's two faces)
+    and `rk2_averages` Heun averages."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    ops = (updates * B1_OPS_CELL_STAGE[riemann]
+    ops = (updates * (B1_OPS_CELL_STAGE[riemann] + 2 * face_ops)
            + rk2_averages * B1_OPS_CELL_RK2_STEP)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -2355,7 +2417,6 @@ def ladder_phases(device, smi, b1):
     ext = V1.extend_periodic(u)
     s2 = V2.build_halo_strips(u, *LADDER_V2_TILE)
     s3 = V2.build_halo_strips(u, *LADDER_V3_TILE, h=h)
-    (tx3, ty3) = LADDER_V3_TILE
     timed = {
         "b9": in_turns(lambda: V4.step_v4_strips_plain(u, lo, hi, **k4),
                        lambda: V4.step_v4_strips_cuda(u, lo, hi, **k4), 2,
@@ -2377,9 +2438,8 @@ def ladder_phases(device, smi, b1):
                            * window_updates(LADDER_TX, h, G)),
         "b10a": ladder_bound((ext, u), nx * ny),
         "b10b": ladder_bound((u, *s2, u), nx * ny),
-        "b10c": ladder_bound((u, *s3, u), (nx // tx3) * (ny // ty3) * sum(
-            (tx3 + 2 * h - 4 * s) * (ty3 + 2 * h - 4 * s)
-            for s in range(1, G + 1)))}
+        "b10c": ladder_bound((u, *s3, u),
+                             tile_updates((nx, ny), LADDER_V3_TILE, G))}
     steps = {"b9": G, "b10a": 1, "b10b": 1, "b10c": G}
     for k, (ms, plain_ms, runs) in timed.items():
         print(f"time {KH_N}^2 float32 rk1 hlle {k}: {ms:.4f} ms a call of "
@@ -2403,6 +2463,246 @@ def ladder_phases(device, smi, b1):
              "max_abs_err": err[k], "ms": timed[k][0],
              "plain_ms": timed[k][1], "bound_ms": bounds[k][0],
              "bound_by": bounds[k][1], "library_ms": None} for k in keys]
+
+
+def sweep_state(n, dtype, device):
+    """bench_kernel_sweep.py's state [3, n, n] (:27-30): sigma = 1 + 0.2 U,
+    momenta 0.1 and -0.05 sigma, from a torch generator of seed 0."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(0)
+    sigma = 1.0 + 0.2 * torch.rand((n, n), generator=gen, device=device,
+                                   dtype=torch.float32)
+    return torch.stack([sigma, 0.1 * sigma, -0.05 * sigma]).to(dtype)
+
+
+def tile_updates(shape, tile, G):
+    """The cell-stage updates of G window steps of every tile: each window
+    of (TX + 4G) x (TY + 4G) shrinks by 2 a side a stage."""
+    (nx, ny), (TX, TY), h = shape, tile, 2 * G
+    return (nx // TX) * (ny // TY) * sum(
+        (TX + 2 * h - 4 * s) * (TY + 2 * h - 4 * s) for s in range(1, G + 1))
+
+
+def li_phases(device, smi):
+    """Phases 41-43 (kernel B8 and its path, the kernel sweep's lig4 rung).
+    Returns B8's entry of the kernels line."""
+    import torch
+    from mara3_tpu_torch.kernels import iso2d_step_li as TL
+    from mara3_tpu_torch.kernels import iso2d_step_v2 as V2
+    from mara3_tpu_torch.kernels import iso2d_step_v3 as V3
+    f64, f32 = torch.float64, torch.float32
+    n = LI_N
+    dx = 1.0 / n
+    lig = dict(geom=(dx, 1.0, 1.0, 1.0, 1.0, 100.0, 1e-4), dtdx=LI_DT / dx,
+               dtdy=LI_DT / dx, theta=1.8, G=LI_G, tile=LI_TILE)
+    v3g = dict(cs2=0.01, dtdx=LI_DT / dx, dtdy=LI_DT / dx, theta=1.8,
+               G=LI_G, tile=LI_TILE)
+
+    # ---- phase 41: B8 against its plain version ----------------------------
+    t0 = time.perf_counter()
+    for dtype in (f64, f32):
+        worst, cases, bitwise = (0.0, 0.0), 0, 0
+        odd = seeded_iso2d(*LI_ODD, dtype, device)
+        noise = seeded_iso2d(*LI_ODD, dtype, device, seed=1)
+        big = sweep_state(n, dtype, device)
+        runs = []
+        for G in (1, 2, 4):
+            for g in LI_ODD_GEOMS:
+                k = dict(geom=g, dtdx=LI_DT / g[0], dtdy=LI_DT / g[0],
+                         theta=1.8, G=G, tile=LI_ODD_TILE)
+                runs.append((odd, V2.build_halo_strips(odd, *LI_ODD_TILE,
+                                                       h=2 * G), k))
+            runs.append((odd, V2.build_halo_strips(noise, *LI_ODD_TILE,
+                                                   h=2 * G), k))
+        runs.append((big, V2.build_halo_strips(big, *LI_TILE, h=2 * LI_G),
+                     lig))
+        for u, strips, k in runs:
+            got = TL.step_li_strips_cuda(u, *strips, **k)
+            torch.cuda.synchronize()
+            want = TL.step_li_strips_plain(u, *strips, **k)
+            e = b1_bar(got, want, dtype)
+            worst = tuple(map(max, worst, e))
+            cases += 1
+            bitwise += bool(torch.equal(got, want))
+            if u is big and dtype == f32:
+                b8_err = e[0]
+            del got, want
+        print(f"B8 parity {str(dtype)[6:]}: {cases} cases pass (G in 1, 2, "
+              f"4 at {LI_ODD[0]}x{LI_ODD[1]} in tiles {LI_ODD_TILE}, beside "
+              f"and across r = 0, periodic and random strips; {n}^2 in tiles "
+              f"{LI_TILE}, G = {LI_G}, the sweep's geometry), {bitwise} of "
+              f"them bit for bit; max |du| {worst[0]:.3e} ({worst[1]:.2f} "
+              f"ulps of its cell)")
+        del big, runs
+    print(f"phase 41: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 42: B8's path, the sweep's lig4 rung ------------------------
+    t0 = time.perf_counter()
+    ub = sweep_state(n, f32, device)
+    mass0 = float(ub[0].double().sum())
+    li = lambda m: TL.advance_n_li(ub, m, **lig)
+    v3 = lambda m: V3.advance_n_v3(ub, m, **v3g)
+    TL.step_li_strips_cuda.launches = 0
+    zps, spread, rates = marginal_rate(li, n * n, *LI_MARGINAL)
+    out = li(LI_MARGINAL[1])
+    torch.cuda.synchronize()
+    b8_launches = TL.step_li_strips_cuda.launches
+    # marginal_rate's two warm-up calls and 5 pairs of two of each, then one
+    want = ((1 + 2 * 5) * sum(LI_MARGINAL) + LI_MARGINAL[1]) // LI_G
+    check(b8_launches == want, f"{b8_launches} B8 launches on the lig4 "
+                               f"path, not {want}")
+    check(bool(torch.isfinite(out).all()), "non-finite lig4 state")
+    drift = abs(float(out[0].double().sum()) - mass0) / mass0
+    check(drift < 1e-5, f"lig4 mass drift {drift:.3e}")
+    zps3, spread3, _ = marginal_rate(v3, n * n, *LI_MARGINAL)
+    print(f"lig4 ({n}^2 float32, tile {LI_TILE}, G = {LI_G}, marginal "
+          f"{LI_MARGINAL[0]} -> {LI_MARGINAL[1]} steps, median of 5): B8 "
+          f"{zps:.6e} zone-updates/s (spread {100 * spread:.1f}%; "
+          + " ".join(f"{r:.4e}" for r in rates) + f"), {b8_launches} B8 "
+          f"launches; mass drift over {LI_MARGINAL[1]} steps {drift:.3e}; "
+          f"v3g4 (B10c, cs^2 0.01) {zps3:.6e} ({100 * spread3:.1f}%) on "
+          f"{smi}")
+    del out
+    print(f"phase 42: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 43: timing at 8192^2 float32 --------------------------------
+    t0 = time.perf_counter()
+    strips = V2.build_halo_strips(ub, *LI_TILE, h=2 * LI_G)
+    b8_ms, b8_plain_ms, runs = in_turns(
+        lambda: TL.step_li_strips_plain(ub, *strips, **lig),
+        lambda: TL.step_li_strips_cuda(ub, *strips, **lig), 1, 10)
+    v3_ms = time_ms(lambda: V3.step_v3_strips_cuda(ub, *strips, **v3g), 10)
+    strip_ms = time_ms(lambda: V2.build_halo_strips(ub, *LI_TILE,
+                                                    h=2 * LI_G), 10)
+    updates = tile_updates((n, n), LI_TILE, LI_G)
+    b8_bnd = ladder_bound((ub, *strips, ub), updates, face_ops=B8_OPS_FACE)
+    v3_bnd = ladder_bound((ub, *strips, ub), updates)
+    print(f"time {n}^2 float32 tile {LI_TILE}: B8 {b8_ms:.4f} ms per "
+          f"{LI_G}-step call ({b8_ms / LI_G:.4f} ms a step) vs plain "
+          f"{b8_plain_ms:.4f} ms (runs " + " ".join(f"{r:.4f}" for r in runs)
+          + f"); bound {b8_bnd[0]:.4f} ms ({b8_bnd[1]}, {updates} updates of "
+          f"{B1_OPS_CELL_STAGE['hlle'] + 2 * B8_OPS_FACE} operations); B10c "
+          f"{v3_ms:.4f} ms (bound {v3_bnd[0]:.4f}, {v3_bnd[1]}); the strips' "
+          f"build {strip_ms:.4f} ms a call on {smi}")
+    del ub, strips
+    print(f"phase 43: {time.perf_counter() - t0:.1f} s")
+    return {"name": "iso2d_step_li (B8)", "route": "cuda",
+            "source": "mara3_tpu_torch/csrc/iso2d_ladder.cu",
+            "replaces": "mara3_tpu/kernels/iso2d_step_li.py:143",
+            "launches": b8_launches, "max_abs_err": b8_err, "ms": b8_ms,
+            "plain_ms": b8_plain_ms, "bound_ms": b8_bnd[0],
+            "bound_by": b8_bnd[1], "library_ms": None}
+
+
+def blast_totals(mesh, bs, u):
+    """[5] totals of u (cast to float64 first, so the sum adds no
+    rounding of its own) as numpy."""
+    from mara3_tpu_torch.mesh import euler3d as TE
+    return TE.total_conserved(mesh, bs, u.double()).cpu().numpy()
+
+
+def blast_drift(t0, t1):
+    """The totals' largest change over the larger of mass and energy
+    (bench_blast3d.py: the momenta start at zero)."""
+    import numpy as np
+    return float(np.abs(t1 - t0).max() / max(abs(t0[0]), abs(t0[4])))
+
+
+def blast3d_phases(device, smi):
+    """Phases 44-46 (the blast3d subprogram, torch ops on the card)."""
+    import numpy as np
+    import torch
+    from mara3_tpu_torch.mesh import euler3d as TE
+    from mara3_tpu_torch.subprograms import blast3d as B3
+    f64 = torch.float64
+    cpu = torch.device("cpu")
+
+    # ---- phase 44: blast3d, card against CPU -------------------------------
+    t0 = time.perf_counter()
+    (card, log, _, _, _, _), (host, hlog, *_) = [
+        drive_amr(B3, BLAST_CPU_ARGS, dev, f64, quiet=True)
+        for dev in (device, cpu)]
+    lines = lambda text: re.findall(r"^\[(\d+)\] t=(\S+) ", text, re.M)
+    check(lines(log) == lines(hlog) and len(lines(log)) == 2,
+          f"blast3d windows differ: {lines(log)} on the card, {lines(hlog)} "
+          f"on the CPU")
+    a, b = card.solution.conserved.cpu(), host.solution.conserved
+    check(allclose(a.numpy(), b.numpy(), **BLAST_RUN),
+          "blast3d d3b8: the card's run differs from the CPU's")
+    print(f"{' '.join(BLAST_CPU_ARGS)} float64: {card.solution.iteration} "
+          f"steps in windows {[int(i) for i, _ in lines(log)]} on the card "
+          f"match the CPU's (rtol {BLAST_RUN['rtol']}), max |du| "
+          f"{float((a - b).abs().max()):.3e}")
+    print(f"phase 44: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 45: the blast3d main path -----------------------------------
+    t0 = time.perf_counter()
+    argv = ["blast3d", f"depth={BLAST_DEPTH}", f"block_size={BLAST_BS}"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, start = B3.setup(argv, device=device)
+    tot0 = blast_totals(start.mesh, BLAST_BS, start.solution.conserved)
+    final, log, wall, writes, _, _ = drive_amr(B3, argv, device)
+    s = final.solution
+    u = s.conserved
+    check(tuple(u.shape) == (len(final.mesh.leaves),) + (BLAST_BS,) * 3
+          + (5,) and u.dtype == torch.float32 and u.is_cuda,
+          f"blast3d state {tuple(u.shape)} {u.dtype}")
+    check(bool(torch.isfinite(u).all()), "non-finite blast3d")
+    check(s.time >= 0.25 - 1e-12, f"blast3d ended at t = {s.time}")
+    windows = [(int(m), float(k)) for k, m in re.findall(
+        r"kzps=([0-9.]+) \[scheme\[(\d+)\]\]", log)]
+    check(sum(m for m, _ in windows) == s.iteration,
+          f"windows add up to {sum(m for m, _ in windows)}, not "
+          f"{s.iteration}")
+    defaults = B3.config_template().create()
+    due = math.floor(defaults.get_double("tfinal")
+                     / defaults.get_double("dfi") + 1e-9) + 1
+    check(len(writes) == due and writes[0][0] == 0,
+          f"diagnostics at {[it for it, _ in writes]}, not {due} from 0")
+    drift = blast_drift(tot0, blast_totals(final.mesh, BLAST_BS, u))
+    check(drift < BLAST_DRIFT, f"blast3d totals drift {drift:.3e}")
+    zones = u.shape[0] * BLAST_BS ** 3
+    print(f"blast3d main path depth={BLAST_DEPTH} block_size={BLAST_BS} "
+          f"({u.shape[0]} blocks) float32: {s.iteration} steps to t = {s.time:.6f}, {wall:.4f} s "
+          f"wall, the {len(writes)} diagnostics copies "
+          f"{sum(w for _, w in writes):.4f} s of it; windows (steps, ms): "
+          + ", ".join(f"({m}, {m * zones / k:.1f})" for m, k in windows)
+          + f"; whole-run {s.iteration * zones / wall:.6e} zone-updates/s; "
+          f"mass and energy drift {drift:.3e} on {smi}")
+    print(f"phase 45: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 46: bench_blast3d.py's marginal rates -----------------------
+    t0 = time.perf_counter()
+    for depth in BLAST_BENCH_DEPTHS:
+        cfg = B3.config_template().create().update(
+            {"depth": depth, "block_size": BLAST_BS})
+        mesh = B3.build_mesh(cfg)
+        u = B3.new_solution(cfg, mesh, device=device).conserved
+        dx_min = 2.0 / (1 << max(1, depth - 1)) / BLAST_BS
+        dt = 0.1 * dx_min / float(TE.max_signal_speed(u, B3.GAMMA)) / 3.0
+        advance = TE.make_advance(mesh, BLAST_BS, B3.GAMMA)
+        zones = u.shape[0] * BLAST_BS ** 3
+        zps, spread, _ = marginal_rate(lambda m: advance(u, dt, m), zones,
+                                       *BLAST_MARGINAL, pairs=3)
+        out = advance(u, dt, BLAST_MARGINAL[1])
+        check(bool(torch.isfinite(out).all()), f"non-finite d{depth}b16")
+        drift = blast_drift(blast_totals(mesh, BLAST_BS, u),
+                            blast_totals(mesh, BLAST_BS, out))
+        check(drift < BLAST_DRIFT, f"d{depth}b16 drift {drift:.3e}")
+        c0 = time.perf_counter()
+        advance(u, dt, 10)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - c0) * 1e2
+        _, busy, launched = profile_table(lambda: advance(u, dt, 10), 1)
+        print(f"blast3d_d{depth}b{BLAST_BS} ({u.shape[0]} blocks, float32): "
+              f"marginal {BLAST_MARGINAL[0]} -> {BLAST_MARGINAL[1]} steps "
+              f"{zps:.6e} zone-updates/s (median of 3, spread "
+              f"{100 * spread:.1f}%); totals drift {drift:.3e} over "
+              f"{BLAST_MARGINAL[1]} steps; a step {step_ms:.4f} ms wall, "
+              f"{launched / 10:.0f} device kernels and "
+              f"{busy / 10 / 1e3:.4f} ms of them "
+              f"({100 * busy / 10 / 1e3 / step_ms:.1f}% busy) on {smi}")
+    print(f"phase 46: {time.perf_counter() - t0:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -2985,6 +3285,8 @@ def main(argv=None) -> int:
     b67 = amr_phases(device, smi, args.profile)
     b11 = variant_phases(device, smi)
     ladder = ladder_phases(device, smi, b1)
+    b8 = li_phases(device, smi)
+    blast3d_phases(device, smi)
 
     print(json.dumps({"kernels": [
         {"name": "binary_advance (B2)", "route": "cuda",
@@ -3011,7 +3313,7 @@ def main(argv=None) -> int:
          "launches": b5_launches, "max_abs_err": b5_err,
          "ms": b5_ms, "plain_ms": b5_plain_ms, "bound_ms": b5_bnd[0],
          "bound_by": b5_bnd[1], "library_ms": None}, *b4, *b67,
-        *b11, *ladder]}))
+        *b11, *ladder, b8]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -15,7 +15,8 @@ from typing import Callable, Dict
 _REGISTRY: Dict[str, Callable] = {}
 
 # the subprograms this package has ported so far
-_SUBPROGRAMS = ("amrsand", "binary", "cloud", "kh", "sand3d", "sedov")
+_SUBPROGRAMS = ("amrsand", "binary", "blast3d", "cloud", "kh", "sand3d",
+                "sedov")
 
 
 def register(name: str):

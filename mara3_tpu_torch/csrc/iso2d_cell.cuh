@@ -1,13 +1,14 @@
 // The per-face and per-cell arithmetic of the periodic iso2d step (PLM with
 // sign-bit half-slopes, HLLE or HLLC, the conservative update), shared by
-// kernel B1 (iso2d_step.cu) and kernels B9, B10a-c (iso2d_ladder.cu).
+// kernel B1 (iso2d_step.cu) and kernels B8, B9, B10a-c (iso2d_ladder.cu).
 //
 // Each function copies the TPU kernels' own operation order
 // (mara3_tpu/kernels/iso2d_step.py: _plm_half, _hlle_1d, _hllc_1d; the
-// update of iso2d_step_v4._step_stripe), as the plain PyTorch versions in
-// mara3_tpu_torch/kernels/iso2d_step.py do. Built with --fmad=false, every
-// kernel that calls them rounds each cell as every other does, so B1, B9
-// and B10a-c agree bit for bit on the cells they share.
+// update of iso2d_step_v4._step_stripe; iso2d_step_li.py's _cs2_at, _hlle_li
+// and positions), as the plain PyTorch versions in
+// mara3_tpu_torch/kernels/iso2d_step.py and iso2d_step_li.py do. Built with
+// --fmad=false, every kernel that calls them rounds each cell as every other
+// does, so B1, B9 and B10a-c agree bit for bit on the cells they share.
 
 #pragma once
 
@@ -49,15 +50,17 @@ __device__ __forceinline__ T plm_half(T yl, T y0, T yr, T half_theta) {
 }
 
 // HLLE flux along the face normal from (density, normal velocity,
-// transverse velocity) face states (iso2d_step.py::_hlle_1d)
+// transverse velocity) face states at the face's cs^2 and cs
+// (iso2d_step.py::_hlle_1d; kernel B8 forms both per face,
+// iso2d_step_li.py::_hlle_li)
 template <typename T>
 __device__ __forceinline__ void hlle(T sgl, T vnl, T vtl, T sgr, T vnr,
-                                     T vtr, const Params<T>& p, T f[3]) {
-  const T ap = fmax(fmax(vnl + p.cs, vnr + p.cs), T(0));
-  const T am = fmin(fmin(vnl - p.cs, vnr - p.cs), T(0));
+                                     T vtr, T cs2, T cs, T f[3]) {
+  const T ap = fmax(fmax(vnl + cs, vnr + cs), T(0));
+  const T am = fmin(fmin(vnl - cs, vnr - cs), T(0));
   const T ul1 = sgl * vnl, ul2 = sgl * vtl;
   const T ur1 = sgr * vnr, ur2 = sgr * vtr;
-  const T pl = sgl * p.cs2, pr = sgr * p.cs2;
+  const T pl = sgl * cs2, pr = sgr * cs2;
   const T fl0 = vnl * sgl, fl1 = vnl * ul1 + pl, fl2 = vnl * ul2;
   const T fr0 = vnr * sgr, fr1 = vnr * ur1 + pr, fr2 = vnr * ur2;
   const T den = T(1) / (ap - am);
@@ -69,9 +72,8 @@ __device__ __forceinline__ void hlle(T sgl, T vnl, T vtl, T sgr, T vnr,
 // HLLC flux, Toro 3rd ed. sec 10.6, isothermal (iso2d_step.py::_hllc_1d)
 template <typename T>
 __device__ __forceinline__ void hllc(T sgl, T vnl, T vtl, T sgr, T vnr,
-                                     T vtr, const Params<T>& p, T f[3]) {
-  const T cs = p.cs;
-  const T pl = sgl * p.cs2, pr = sgr * p.cs2;
+                                     T vtr, T cs2, T cs, T f[3]) {
+  const T pl = sgl * cs2, pr = sgr * cs2;
   const T ppvrs = T(0.5) * (pl + pr) - T(0.25) * (vnr - vnl) * (sgl + sgr) * cs;
   const T pstar = fmax(ppvrs, T(0));
   const T ql = fmax(sqrt(pstar / pl), T(1));
@@ -104,36 +106,61 @@ __device__ __forceinline__ void hllc(T sgl, T vnl, T vtl, T sgr, T vnr,
 
 template <typename T, bool HLLC>
 __device__ __forceinline__ void riemann(T sgl, T vnl, T vtl, T sgr, T vnr,
-                                        T vtr, const Params<T>& p, T f[3]) {
+                                        T vtr, T cs2, T cs, T f[3]) {
   if (HLLC) {
-    hllc(sgl, vnl, vtl, sgr, vnr, vtr, p, f);
+    hllc(sgl, vnl, vtl, sgr, vnr, vtr, cs2, cs, f);
   } else {
-    hlle(sgl, vnl, vtl, sgr, vnr, vtr, p, f);
+    hlle(sgl, vnl, vtl, sgr, vnr, vtr, cs2, cs, f);
   }
 }
 
-// The flux through the face between cells a and b, from the primitives
-// (sigma, vx, vy) of the four cells m, a, b, pp in a row along the face
-// normal: x (Y false) or y (Y true). For a y face the normal velocity is vy,
-// so the solver's normal-momentum flux is the y one.
+// The flux through the face between cells a and b at the face's cs^2 and
+// cs, from the primitives (sigma, vx, vy) of the four cells m, a, b, pp in
+// a row along the face normal: x (Y false) or y (Y true). For a y face the
+// normal velocity is vy, so the solver's normal-momentum flux is the y one.
 template <typename T, bool HLLC, bool Y>
 __device__ __forceinline__ void face_flux(const T m[3], const T a[3],
                                           const T b[3], const T pp[3],
-                                          const Params<T>& p, T f[3]) {
+                                          T half_theta, T cs2, T cs,
+                                          T f[3]) {
   T L[3], R[3];
   for (int q = 0; q < 3; ++q) {
-    L[q] = a[q] + plm_half(m[q], a[q], b[q], p.half_theta);
-    R[q] = b[q] - plm_half(a[q], b[q], pp[q], p.half_theta);
+    L[q] = a[q] + plm_half(m[q], a[q], b[q], half_theta);
+    R[q] = b[q] - plm_half(a[q], b[q], pp[q], half_theta);
   }
   if (Y) {
     T g[3];
-    riemann<T, HLLC>(L[0], L[2], L[1], R[0], R[2], R[1], p, g);
+    riemann<T, HLLC>(L[0], L[2], L[1], R[0], R[2], R[1], cs2, cs, g);
     f[0] = g[0];
     f[1] = g[2];
     f[2] = g[1];
   } else {
-    riemann<T, HLLC>(L[0], L[1], L[2], R[0], R[1], R[2], p, f);
+    riemann<T, HLLC>(L[0], L[1], L[2], R[0], R[1], R[2], cs2, cs, f);
   }
+}
+
+// at the constant cs^2 and cs of p (kernels B1, B9, B10a-c)
+template <typename T, bool HLLC, bool Y>
+__device__ __forceinline__ void face_flux(const T m[3], const T a[3],
+                                          const T b[3], const T pp[3],
+                                          const Params<T>& p, T f[3]) {
+  face_flux<T, HLLC, Y>(m, a, b, pp, p.half_theta, p.cs2, p.cs, f);
+}
+
+// A face's coordinate o + (i + d) dx, wrapped periodically into [lo, lo + L)
+// as x - L floor((x - lo) / L) (iso2d_step_li.py:63-70)
+template <typename T>
+__device__ __forceinline__ T wrapped_coord(T o, int i, T d, T dx, T lo,
+                                           T L) {
+  const T x = o + (T(i) + d) * dx;
+  return x - L * floor((x - lo) / L);
+}
+
+// The axisymmetric locally isothermal cs^2 = 1 / (M^2 sqrt(x^2 + y^2 +
+// r_s^2)) (iso2d_step_li.py:30-32); sqrt and the division correctly rounded
+template <typename T>
+__device__ __forceinline__ T cs2_at(T x, T y, T mach2, T rsoft2) {
+  return T(1) / (mach2 * sqrt(x * x + y * y + rsoft2));
 }
 
 // The forward-Euler update of one component of a cell from its x faces

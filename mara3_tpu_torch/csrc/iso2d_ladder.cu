@@ -1,8 +1,13 @@
-// Kernels B9, B10a, B10b and B10c: the constant-cs^2 periodic iso2d step
-// (PLM + HLLE or HLLC, forward Euler or SSP-RK2) of the JAX package's
-// earlier uniform-grid kernels, on a state u [3, nx, ny] with y contiguous.
+// Kernels B8, B9, B10a, B10b and B10c: the periodic iso2d step (PLM + HLLE
+// or HLLC, forward Euler or SSP-RK2) of the JAX package's earlier
+// uniform-grid kernels, on a state u [3, nx, ny] with y contiguous; B8 with
+// the flagship's locally isothermal sound speed, the others at a constant
+// cs^2.
 //
 // Replaces (mara3_tpu/kernels/...):
+//   B8   iso2d_step_li.py:143 pallas_step_li: G rk1 HLLE steps of tiles TX x
+//        TY from strips of h = 2 G, as B10c, with cs^2 = 1 / (M^2 sqrt(r^2 +
+//        r_s^2)) at each face from its wrapped position;
 //   B9   iso2d_step_v4.py:135 pallas_step_v4_strips: G steps of full-width
 //        x-stripes of TX rows from the caller's x-halo strips lo, hi
 //        [nx / TX, 3, h, ny] (h = 2 G rk_order), y periodic; the kernel of
@@ -14,16 +19,20 @@
 //   B10c iso2d_step_v3.py:46 pallas_step_v3: G rk1 HLLE steps of such tiles
 //        from strips of h = 2 G.
 // Each computes what its plain version in kernels/iso2d_step_v{4,1,2,3}.py
-// computes, operation for operation, through the per-face and per-cell
-// functions of iso2d_cell.cuh that kernel B1 uses too.
+// or iso2d_step_li.py computes, operation for operation, through the
+// per-face and per-cell functions of iso2d_cell.cuh that kernel B1 uses
+// too.
 //
 // Bound. A step needs about 194 operations a cell with HLLE (212 with HLLC),
 // 0.024 ms at 2048^2 float32 at 33.5e12 operations a second (no FMAs under
 // --fmad=false); one pass over the state (read and write) is 0.030 ms. B10a
-// and B10b take one step a launch, so they are bound by that pass. B9 and
-// B10c take G steps for one pass, so the operations bind them, with the
+// and B10b take one step a launch, so they are bound by that pass. B8, B9
+// and B10c take G steps for one pass, so the operations bind them, with the
 // halo's recomputation on top: the function updates each tile's (or
-// stripe's) window, which shrinks by 2 cells a side a stage.
+// stripe's) window, which shrinks by 2 cells a side a stage. B8 forms each
+// face's sound speed in 24 more operations (the position 3 and the wrap 5
+// an axis, cs^2 7, cs 1), of which the function needs cs^2 and cs (8): a
+// face's coordinates are its row's or its column's.
 //
 // Design:
 //   - B10a: one thread a cell, reading the nine cells of its cross from the
@@ -41,6 +50,13 @@
 //     stage, and writes only the sub-tile. Device memory sees one read of
 //     the window and one write of the sub-tile per launch.
 //   - B10b is B10c's kernel at G = 1 (as v2 is v3 at G = 1 on the TPU).
+//   - B8 is B10c's kernel with the sound speed formed at each face from the
+//     geometry in registers (the cs^2 field never exists in device memory,
+//     as on the TPU). A face's position is rounded as the TPU kernel rounds
+//     it, from its TPU tile's window origin ox = x0 + (ti TX - h + 1/2) dx,
+//     that step's offset (2 s) dx (formed in double, then cast) and the
+//     face's index ii in the step's shrunk window of the TPU tile: so the
+//     CTA, which holds only a sub-tile, recovers ti and ii (Local).
 //   - The y halo of B9's window wraps periodically inside the stripe's rows
 //     (the TPU kernel's lane rolls); only x halos come from strips.
 
@@ -111,12 +127,32 @@ __device__ __forceinline__ Window<T> carve(int WX, int WY, bool rk2) {
   return w;
 }
 
+// B8's locally isothermal sound speed: the geometry cast to T (dx in double
+// too, for the steps' offsets), the CTA's TPU-tile window origin (ox, oy)
+// and its sub-tile's offset (li0, lj0) in that tile.
+template <typename T>
+struct Local {
+  T dx, x0, y0, Lx, Ly, mach2, rsoft2;
+  double dx_d;
+  T ox, oy;
+  int li0, lj0;
+};
+
 // One forward-Euler stage of the valid region [r0, r1) x [c0, c1) of U:
 // afterwards [r0 + 2, r1 - 2) x [c0 + 2, c1 - 2) holds E(U), or with
-// `average` 0.5 * (U0 + E(U)).
-template <typename T, bool HLLC>
+// `average` 0.5 * (U0 + E(U)). With LI (B8, HLLE only) each face takes its
+// own sound speed from `loc`, the stage being s = r0 / 2 = c0 / 2.
+template <typename T, bool HLLC, bool LI>
 __device__ void window_stage(const Window<T>& w, int r0, int r1, int c0,
-                             int c1, bool average, const Params<T>& p) {
+                             int c1, bool average, const Params<T>& p,
+                             const Local<T>& loc) {
+  static_assert(!(LI && HLLC), "B8 solves with HLLE");
+  T ox = T(0), oy = T(0);
+  if (LI) {
+    const T off = T(double(r0) * loc.dx_d);   // (2 s) dx
+    ox = loc.ox + off;
+    oy = loc.oy + off;
+  }
   const int nr = r1 - r0, nc = c1 - c0;
   for (Walk k(nc); k.r < nr; k.next()) {
     const int r = r0 + k.r, c = c0 + k.c;
@@ -137,7 +173,19 @@ __device__ void window_stage(const Window<T>& w, int r0, int r1, int c0,
       x1[q] = w.P[w.at(q, a, c)];
       pp[q] = w.P[w.at(q, a + 1, c)];
     }
-    iso2d::face_flux<T, HLLC, false>(m, x0, x1, pp, p, f);
+    if (LI) {
+      // the face f = ii of the TPU window's step, at x = ox + (ii + 3/2) dx
+      // and on its column jj, y = oy + (jj + 2) dx
+      const T x = iso2d::wrapped_coord(ox, loc.li0 + a - 2 - r0, T(1.5),
+                                       loc.dx, loc.x0, loc.Lx);
+      const T y = iso2d::wrapped_coord(oy, loc.lj0 + c - 2 - c0, T(2),
+                                       loc.dx, loc.y0, loc.Ly);
+      const T cs2 = iso2d::cs2_at(x, y, loc.mach2, loc.rsoft2);
+      iso2d::face_flux<T, false, false>(m, x0, x1, pp, p.half_theta, cs2,
+                                      sqrt(cs2), f);
+    } else {
+      iso2d::face_flux<T, HLLC, false>(m, x0, x1, pp, p, f);
+    }
     for (int q = 0; q < 3; ++q) w.FX[w.at(q, a, c)] = f[q];
   }
   // y faces b in [c0 + 2, c1 - 1), on the surviving rows
@@ -150,7 +198,17 @@ __device__ void window_stage(const Window<T>& w, int r0, int r1, int c0,
       y1[q] = w.P[w.at(q, r, b)];
       pp[q] = w.P[w.at(q, r, b + 1)];
     }
-    iso2d::face_flux<T, HLLC, true>(m, y0, y1, pp, p, f);
+    if (LI) {
+      const T x = iso2d::wrapped_coord(ox, loc.li0 + r - 2 - r0, T(2),
+                                       loc.dx, loc.x0, loc.Lx);
+      const T y = iso2d::wrapped_coord(oy, loc.lj0 + b - 2 - c0, T(1.5),
+                                       loc.dx, loc.y0, loc.Ly);
+      const T cs2 = iso2d::cs2_at(x, y, loc.mach2, loc.rsoft2);
+      iso2d::face_flux<T, false, true>(m, y0, y1, pp, p.half_theta, cs2,
+                                     sqrt(cs2), f);
+    } else {
+      iso2d::face_flux<T, HLLC, true>(m, y0, y1, pp, p, f);
+    }
     for (int q = 0; q < 3; ++q) w.FY[w.at(q, r, b)] = f[q];
   }
   __syncthreads();
@@ -170,9 +228,10 @@ __device__ void window_stage(const Window<T>& w, int r0, int r1, int c0,
 // G steps of the window [0, wx) x [0, wy) loaded in U: rk 1, or SSP-RK2
 // (u + E(E(u))) / 2. The result is U's region [h, wx - h) x [h, wy - h),
 // h = 2 G rk.
-template <typename T, bool HLLC>
+template <typename T, bool HLLC, bool LI>
 __device__ void window_steps(const Window<T>& w, int wx, int wy, int G,
-                             int rk, const Params<T>& p) {
+                             int rk, const Params<T>& p,
+                             const Local<T>& loc) {
   int r0 = 0, r1 = wx, c0 = 0, c1 = wy;
   for (int g = 0; g < G; ++g) {
     if (rk == 2) {
@@ -182,10 +241,10 @@ __device__ void window_steps(const Window<T>& w, int wx, int wy, int G,
         const int r = r0 + 4 + k.r, c = c0 + 4 + k.c;
         for (int q = 0; q < 3; ++q) w.U0[w.at(q, r, c)] = w.U[w.at(q, r, c)];
       }
-      window_stage<T, HLLC>(w, r0, r1, c0, c1, false, p);
+      window_stage<T, HLLC, LI>(w, r0, r1, c0, c1, false, p, loc);
       r0 += 2; r1 -= 2; c0 += 2; c1 -= 2;
     }
-    window_stage<T, HLLC>(w, r0, r1, c0, c1, rk == 2, p);
+    window_stage<T, HLLC, LI>(w, r0, r1, c0, c1, rk == 2, p, loc);
     r0 += 2; r1 -= 2; c0 += 2; c1 -= 2;
   }
 }
@@ -225,7 +284,7 @@ stripes_kernel(const T* __restrict__ u, const T* __restrict__ lo,
     }
   }
   __syncthreads();
-  window_steps<T, HLLC>(w, wx, wy, G, rk, p);
+  window_steps<T, HLLC, false>(w, wx, wy, G, rk, p, Local<T>());
   for (Walk k(cy); k.r < cx; k.next()) {
     const int a = k.r, b = k.c;
     const long long c = (long long)(s * TX + li0 + a) * ny + j0 + b;
@@ -233,17 +292,18 @@ stripes_kernel(const T* __restrict__ u, const T* __restrict__ lo,
   }
 }
 
-// B10b, B10c: the CTA's sub-tile is rows [li0, li0 + cx) and columns
+// B8, B10b, B10c: the CTA's sub-tile is rows [li0, li0 + cx) and columns
 // [lj0, lj0 + cy) of tile (ti, tj); its window's halo comes from the tile's
 // strips: north, south [gi, gj, 3, h, TY + 2h] (rows above and below, the
-// corners included), west, east [gi, gj, 3, TX, h].
-template <typename T>
+// corners included), west, east [gi, gj, 3, TX, h]. LI: B8, `geom` its
+// geometry.
+template <typename T, bool LI>
 __global__ void __launch_bounds__(kThreads)
 tiles_kernel(const T* __restrict__ u, const T* __restrict__ north,
              const T* __restrict__ south, const T* __restrict__ west,
              const T* __restrict__ east, T* __restrict__ out, int nx, int ny,
              int TX, int TY, int h, int G, int CX, int CY, int subx, int suby,
-             Params<T> p) {
+             Params<T> p, Local<T> geom) {
   const int gj = ny / TY;
   const int ti = blockIdx.y / subx, li0 = (blockIdx.y % subx) * CX;
   const int tj = blockIdx.x / suby, lj0 = (blockIdx.x % suby) * CY;
@@ -274,7 +334,16 @@ tiles_kernel(const T* __restrict__ u, const T* __restrict__ north,
     }
   }
   __syncthreads();
-  window_steps<T, false>(w, wx, wy, G, 1, p);
+  Local<T> loc = geom;
+  if (LI) {
+    // the TPU tile's window origin: its cell (0, 0), global (ti TX - h, tj
+    // TY - h), at x0 + (ti TX - h + 1/2) dx
+    loc.ox = loc.x0 + T(double(ti * TX - h) + 0.5) * loc.dx;
+    loc.oy = loc.y0 + T(double(tj * TY - h) + 0.5) * loc.dx;
+    loc.li0 = li0;
+    loc.lj0 = lj0;
+  }
+  window_steps<T, false, LI>(w, wx, wy, G, 1, p, loc);
   for (Walk k(cy); k.r < cx; k.next()) {
     const int a = k.r, b = k.c;
     const long long c =
@@ -354,23 +423,57 @@ int b9(const T* u, const T* lo, const T* hi, T* out, int nx, int ny, int TX,
   return static_cast<int>(cudaGetLastError());
 }
 
+// B8 (LI) and B10b/B10c: G steps of the tiles from their strips
+template <typename T, bool LI>
+int tiles(const T* u, const T* north, const T* south, const T* west,
+          const T* east, T* out, int nx, int ny, int TX, int TY, int G,
+          int CX, int CY, const Params<T>& p, const Local<T>& geom,
+          void* stream) {
+  const int h = 2 * G;
+  const int subx = (TX + CX - 1) / CX, suby = (TY + CY - 1) / CY;
+  const dim3 grid((ny / TY) * suby, (nx / TX) * subx);
+  const size_t bytes = window_bytes<T>(CX, CY, h, 1);
+  cudaError_t err = allow_smem(tiles_kernel<T, LI>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tiles_kernel<T, LI><<<grid, kThreads, bytes,
+                        static_cast<cudaStream_t>(stream)>>>(
+      u, north, south, west, east, out, nx, ny, TX, TY, h, G, CX, CY, subx,
+      suby, p, geom);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int b10_tiles(const T* u, const T* north, const T* south, const T* west,
               const T* east, T* out, int nx, int ny, int TX, int TY, int G,
               int CX, int CY, double cs2, double dtdx, double dtdy,
               double theta, void* stream) {
-  const Params<T> p = iso2d::make_params<T>(cs2, dtdx, dtdy, theta);
-  const int h = 2 * G;
-  const int subx = (TX + CX - 1) / CX, suby = (TY + CY - 1) / CY;
-  const dim3 grid((ny / TY) * suby, (nx / TX) * subx);
-  const size_t bytes = window_bytes<T>(CX, CY, h, 1);
-  cudaError_t err = allow_smem(tiles_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tiles_kernel<T><<<grid, kThreads, bytes,
-                    static_cast<cudaStream_t>(stream)>>>(
-      u, north, south, west, east, out, nx, ny, TX, TY, h, G, CX, CY, subx,
-      suby, p);
-  return static_cast<int>(cudaGetLastError());
+  return tiles<T, false>(u, north, south, west, east, out, nx, ny, TX, TY, G,
+                         CX, CY, iso2d::make_params<T>(cs2, dtdx, dtdy, theta),
+                         Local<T>(), stream);
+}
+
+// B8: the geometry (dx, x0, y0, Lx, Ly, mach2, rsoft2) cast to T, as the
+// ladder's other scalars (make_params); the constant cs^2 is not used
+template <typename T>
+int b8_tiles(const T* u, const T* north, const T* south, const T* west,
+             const T* east, T* out, int nx, int ny, int TX, int TY, int G,
+             int CX, int CY, double dx, double x0, double y0, double Lx,
+             double Ly, double mach2, double rsoft2, double dtdx, double dtdy,
+             double theta, void* stream) {
+  Local<T> geom;
+  geom.dx = T(dx);
+  geom.x0 = T(x0);
+  geom.y0 = T(y0);
+  geom.Lx = T(Lx);
+  geom.Ly = T(Ly);
+  geom.mach2 = T(mach2);
+  geom.rsoft2 = T(rsoft2);
+  geom.dx_d = dx;
+  geom.ox = geom.oy = T(0);
+  geom.li0 = geom.lj0 = 0;
+  return tiles<T, true>(u, north, south, west, east, out, nx, ny, TX, TY, G,
+                        CX, CY, iso2d::make_params<T>(0.0, dtdx, dtdy, theta),
+                        geom, stream);
 }
 
 template <typename T>
@@ -438,6 +541,31 @@ int b10_tiles_f64(const double* u, const double* north, const double* south,
                   double dtdx, double dtdy, double theta, void* stream) {
   return b10_tiles<double>(u, north, south, west, east, out, nx, ny, TX, TY,
                            G, CX, CY, cs2, dtdx, dtdy, theta, stream);
+}
+
+// B8: G locally isothermal rk1 HLLE steps of the tiles TX x TY of u from
+// their strips of h = 2 G, CTA sub-tiles CX x CY; geometry (dx, x0, y0, Lx,
+// Ly, mach2, rsoft2)
+int b8_tiles_f32(const float* u, const float* north, const float* south,
+                 const float* west, const float* east, float* out, int nx,
+                 int ny, int TX, int TY, int G, int CX, int CY, double dx,
+                 double x0, double y0, double Lx, double Ly, double mach2,
+                 double rsoft2, double dtdx, double dtdy, double theta,
+                 void* stream) {
+  return b8_tiles<float>(u, north, south, west, east, out, nx, ny, TX, TY, G,
+                         CX, CY, dx, x0, y0, Lx, Ly, mach2, rsoft2, dtdx,
+                         dtdy, theta, stream);
+}
+
+int b8_tiles_f64(const double* u, const double* north, const double* south,
+                 const double* west, const double* east, double* out, int nx,
+                 int ny, int TX, int TY, int G, int CX, int CY, double dx,
+                 double x0, double y0, double Lx, double Ly, double mach2,
+                 double rsoft2, double dtdx, double dtdy, double theta,
+                 void* stream) {
+  return b8_tiles<double>(u, north, south, west, east, out, nx, ny, TX, TY,
+                          G, CX, CY, dx, x0, y0, Lx, Ly, mach2, rsoft2, dtdx,
+                          dtdy, theta, stream);
 }
 
 }  // extern "C"

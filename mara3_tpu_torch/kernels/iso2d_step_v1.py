@@ -22,9 +22,9 @@ package's iso2d_step_v5.py, so this module is `iso2d_step_v1`.
   never falls back from one to the other. `advance_n_v1(u, n)` runs n
   steps, extending the state before each.
 
-Shared with B9, B10b and B10c: `_step_tile` (their plain step of a window),
-the built library and `cta_tile`, the CTA sub-tile whose window fits in
-shared memory.
+Shared with B8, B9, B10b and B10c: `_step_tile` (their plain step of a
+window, B8's with its per-face sound speeds), the built library and
+`cta_tile`, the CTA sub-tile whose window fits in shared memory.
 """
 
 from __future__ import annotations
@@ -75,10 +75,14 @@ def check_kernel_args(what, *tensors):
 # the plain version
 # -----------------------------------------------------------------------------
 
-def _step_tile(u, scalars):
+def _step_tile(u, scalars, faces=None):
     """One step of the interior of windows [..., 3, WX, WY]: [..., 3, WX-4,
-    WY-4] (mara3_tpu/kernels/iso2d_step.py::_step_tile, HLLE)."""
+    WY-4] (mara3_tpu/kernels/iso2d_step.py::_step_tile, HLLE). `faces`,
+    ((cs2, cs) of the x faces [..., WX-3, WY-4], (cs2, cs) of the y faces
+    [..., WX-4, WY-3]), replaces the scalars' constant sound speed (kernel
+    B8's locally isothermal step)."""
     cs2, cs, dtdx, dtdy, half_theta = scalars
+    (cs2x, csx), (cs2y, csy) = faces or ((cs2, cs), (cs2, cs))
     sg = u[..., 0, :, :]
     vx = u[..., 1, :, :] / sg
     vy = u[..., 2, :, :] / sg
@@ -97,9 +101,9 @@ def _step_tile(u, scalars):
                 (qc[..., 1:] - gh[..., 1:])[..., 2:-2, :])
 
     (sgl, sgr), (vxl, vxr), (vyl, vyr) = (faces_x(q) for q in (sg, vx, vy))
-    fx = TK._hlle_1d(sgl, vxl, vyl, sgr, vxr, vyr, cs2, cs)
+    fx = TK._hlle_1d(sgl, vxl, vyl, sgr, vxr, vyr, cs2x, csx)
     (sgl, sgr), (vxl, vxr), (vyl, vyr) = (faces_y(q) for q in (sg, vx, vy))
-    fy0, fy2, fy1 = TK._hlle_1d(sgl, vyl, vxl, sgr, vyr, vxr, cs2, cs)
+    fy0, fy2, fy1 = TK._hlle_1d(sgl, vyl, vxl, sgr, vyr, vxr, cs2y, csy)
     # for y faces the normal is vy: the solver's f_pn is the y-momentum flux
     u0 = u[..., 2:-2, 2:-2]
     return torch.stack([
@@ -142,11 +146,15 @@ _c_double = ctypes.c_double
 
 
 def library():
-    """The built csrc/iso2d_ladder.cu (kernels B9, B10a-c; compiled on first
-    use)."""
+    """The built csrc/iso2d_ladder.cu (kernels B8, B9, B10a-c; compiled on
+    first use)."""
     from mara3_tpu_torch.kernels import _build
     lib = _build.load("iso2d_ladder")
     if not getattr(lib, "_mara_typed", False):
+        for fn in (lib.b8_tiles_f32, lib.b8_tiles_f64):
+            fn.argtypes = ([_c_void_p] * 6 + [_c_int] * 7 + [_c_double] * 10
+                           + [_c_void_p])
+            fn.restype = _c_int
         for fn in (lib.b9_strips_f32, lib.b9_strips_f64):
             fn.argtypes = ([_c_void_p] * 4 + [_c_int] * 8 + [_c_double] * 4
                            + [_c_void_p])

@@ -89,8 +89,17 @@ class BlockMesh3D:
         return cls(tree_nd.create_tree(predicate, depth, rank=3))
 
 
-def _ids(a, device):
-    return torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
+def _table(mesh, name, device):
+    """mesh.<name> as an int64 tensor on `device`, copied there once per
+    device and kept on the mesh: a copy from host memory waits for the
+    device's queue, and the guards read these tables on every face of
+    every step."""
+    tables = mesh.__dict__.setdefault("_device_tables", {})
+    key = (name, torch.device(device))
+    if key not in tables:
+        tables[key] = torch.as_tensor(np.asarray(getattr(mesh, name)),
+                                      dtype=torch.int64, device=device)
+    return tables[key]
 
 
 def _slab(u, ids, axis, side):
@@ -124,23 +133,24 @@ def _guard(u, mesh, axis, side):
     n = u.shape[1]
     dev = u.device
     tail = (1,) * (u.dim() - 4)
-    case = _ids(mesh.case[:, axis, side], dev).reshape(-1, 1, 1, *tail)
+    t = lambda name: _table(mesh, name, dev)
+    case = t("case")[:, axis, side].reshape(-1, 1, 1, *tail)
 
-    g_same = _slab(u, _ids(mesh.same_id[:, axis, side], dev), axis, side)
+    g_same = _slab(u, t("same_id")[:, axis, side], axis, side)
 
     # coarser neighbor: select our quarter of its face and prolong
     # piecewise-constant, idx = tq * n/2 + i // 2 per tangential axis
-    sc = _slab(u, _ids(mesh.coarse_id[:, axis, side], dev), axis, side)
+    sc = _slab(u, t("coarse_id")[:, axis, side], axis, side)
     i2 = torch.arange(n, device=dev) // 2
-    idx1 = _ids(mesh.tq1[:, axis, side], dev)[:, None] * (n // 2) + i2
-    idx2 = _ids(mesh.tq2[:, axis, side], dev)[:, None] * (n // 2) + i2
+    idx1 = t("tq1")[:, axis, side][:, None] * (n // 2) + i2
+    idx2 = t("tq2")[:, axis, side][:, None] * (n // 2) + i2
     rows = torch.arange(sc.shape[0], device=dev)[:, None, None]
     g_coarse = sc[rows, idx1[:, :, None], idx2[:, None, :]]
 
     # 4 finer neighbors: mean-restrict each face, assemble quarters
     g_fine = _assemble_quarters([
-        _restrict_face(_slab(u, _ids(mesh.fine_id[:, axis, side, k], dev),
-                             axis, side), n) for k in range(4)])
+        _restrict_face(_slab(u, t("fine_id")[:, axis, side, k], axis, side),
+                       n) for k in range(4)])
 
     return torch.where(case == SAME, g_same,
                        torch.where(case == COARSE, g_coarse, g_fine))
@@ -160,11 +170,11 @@ def correct_fluxes(F, axis, mesh):
         j_fine = n if s == 0 else 0          # their matching face
         Fface = F.select(axis + 1, j_fine)
         rest = _assemble_quarters([
-            _restrict_face(Fface[_ids(mesh.fine_id[:, axis, s, k], dev)], n)
-            for k in range(4)])
+            _restrict_face(Fface[_table(mesh, "fine_id", dev)[:, axis, s, k]],
+                           n) for k in range(4)])
         own = F.select(axis + 1, j_own)
-        mask = torch.as_tensor(mesh.case[:, axis, s] == FINE,
-                               device=dev).reshape(-1, 1, 1, *tail)
+        mask = (_table(mesh, "case", dev)[:, axis, s] == FINE).reshape(
+            -1, 1, 1, *tail)
         new = torch.where(mask, rest, own).unsqueeze(axis + 1)
         F = (torch.cat([new, F.narrow(axis + 1, 1, n)], dim=axis + 1)
              if s == 0 else

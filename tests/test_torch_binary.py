@@ -240,9 +240,9 @@ def test_no_jax_in_the_port():
     advances (kernels B11a-c's plain versions), a regrid, a sedov SRHD step of
     kernel B5's plain version, two cloud steps of kernel B4d's plain
     version, and two amrsand and two sand3d steps of kernels B6's and B7's
-    plain versions, a sharded kh advance (B9's plain version) and a step of
-    B10a-c's, loads neither jax nor the JAX package, and no source file of
-    the port imports them."""
+    plain versions, a sharded kh advance (B9's plain version), a step of
+    B10a-c's, two of B8's and two blast3d steps, loads neither jax nor the
+    JAX package, and no source file of the port imports them."""
     code = (
         "import sys, torch\n"
         "from mara3_tpu_torch.subprograms import binary as B\n"
@@ -305,6 +305,15 @@ def test_no_jax_in_the_port():
         "V2.advance_n_v2(v, 1, cs2=1.0, dtdx=0.1, dtdy=0.1, tile=(8, 8))\n"
         "V3.advance_n_v3(v, 2, G=2, cs2=1.0, dtdx=0.1, dtdy=0.1,"
         " tile=(8, 8))\n"
+        "from mara3_tpu_torch.kernels import iso2d_step_li as LI\n"
+        "LI.advance_n_li(v, 2, G=2, geom=(1 / 16, 1.0, 1.0, 1.0, 1.0, 100.0,"
+        " 1e-4), dtdx=0.01, dtdy=0.01, tile=(8, 8))\n"
+        "from mara3_tpu_torch.subprograms import blast3d as B3\n"
+        "from mara3_tpu_torch.mesh import euler3d as E3\n"
+        "bc = B3.config_template().create().update({'depth': 2,"
+        " 'block_size': 4})\n"
+        "bm = B3.build_mesh(bc)\n"
+        "E3.make_advance(bm, 4)(B3.new_solution(bc, bm).conserved, 1e-3, 2)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mara3_tpu' or m.startswith('mara3_tpu.')]\n"
         "assert not bad, bad\n"
