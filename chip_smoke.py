@@ -12,6 +12,8 @@ exits non-zero and prints no result):
    cloud_update.cu (B4), amrsand_step.cu (B6), sand3d_step.cu (B7),
    binary_update.cu (B11a, B11b), binary_advance_strips.cu (B11c) and
    iso2d_ladder.cu (B8, B9, B10a-c), one nvcc each, started together;
+   binary_multi.cu with -Xptxas=-v, whose registers and spills for each
+   B3 kernel it prints;
 3. B2 parity: kernel B2 against its plain PyTorch version on the card, at
    depth 3 / block 16 over {conserve_linear_p} x {hlle, hllc} x {plm, pcm}
    and at the main path's shape (depth 6 / block 96), each in float64 at
@@ -24,7 +26,8 @@ exits non-zero and prints no result):
    block 16, 4 steps per launch, over the 8 configurations above x
    rk_order {1, 2} x live binary {off, on}, float64 at the CPU bars and
    float32 at 64 k ulps of each cell; then depth 6 / block 96, 16 RK2
-   steps, in float64 and float32;
+   steps, in float64 and float32, each called twice to show the same
+   bits;
 6. slice: two RK2 steps through the port's next_solution, kernel on the
    card against the plain version on the CPU, float64, depth 3 / block 16;
 7. fast vs reference: 35 steps of make_multi_scan (B3 launches of 16, 16
@@ -40,8 +43,11 @@ exits non-zero and prints no result):
    about N), every B3 and B2 launch counted; prints both loops' whole-run
    rates (steps x zones / wall seconds);
 10. timing at d6b96 float32, in turns on the card (plain, kernel, kernel,
-   plain): one B3 launch of 16 RK2 steps, 16 steps of the per-step scan
-   (B2), and advance_k_plain over 16 steps;
+   plain): one B3 call of 16 RK2 steps, 16 steps of the per-step scan
+   (B2), and advance_k_plain over 16 steps; then each B3 kernel's device
+   time and launches per call (torch.profiler's rows by kernel name), and
+   its registers, local memory, shared memory and CTAs per SM in float32
+   and float64;
 11. B1 parity: kernel B1 (csrc/iso2d_step.cu) against advance_n_plain on
    the card over {hlle, hllc} x {rk1, rk2} x {float64, float32}, at
    96 x 160 (a shape no TPU alignment rule allows) for n in {1, 3, 16} and
@@ -716,6 +722,54 @@ def profile_table(fn, reps):
     busy = sum(e.self_device_time_total for e in kernels)
     return (events.table(sort_by="cuda_time_total", row_limit=30),
             busy / reps, sum(e.count for e in kernels) / reps)
+
+
+def kernel_split(fn, reps):
+    """{B3 kernel or "other": (device us per call, launches per call)} of
+    reps calls of fn under torch.profiler, its rows grouped by kernel
+    name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mara3_tpu_torch.kernels import binary_multi as TM
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {name: [0.0, 0] for name in (*TM.KERNELS, "other")}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = next((k for k in TM.KERNELS if k + "_kernel" in e.key),
+                    "other")
+        split[name][0] += e.self_device_time_total / reps
+        split[name][1] += e.count / reps
+    return {k: tuple(v) for k, v in split.items()}
+
+
+def ptxas_summary(log):
+    """One line per B3 kernel instance of an nvcc -Xptxas=-v log: its
+    registers, stack frame and spills."""
+    lines, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            k = re.search(r"(b3_\w+?)_kernelI([fd])", m.group(1))
+            dtype = "float32" if k and k.group(2) == "f" else "float64"
+            name = k and f"{k.group(1)} {dtype}"
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            frame = (f"{m.group(1)} B stack, {m.group(2)} B spill stores, "
+                     f"{m.group(3)} B spill loads")
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            lines.append(f"{name}: {m.group(1)} registers, {frame}")
+            name = None
+    return lines
 
 
 class Tee(io.TextIOBase):
@@ -2746,13 +2800,19 @@ def main(argv=None) -> int:
                "cloud_update", "amrsand_step", "sand3d_step",
                "binary_update", "binary_advance_strips", "iso2d_ladder")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(_build.build, sources))
+    ptxas = io.StringIO()
+    # only binary_multi's build prints (its -Xptxas=-v report)
+    with contextlib.redirect_stdout(ptxas), \
+            ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(lambda s: _build.build(
+            s, verbose=s == "binary_multi"), sources))
     for src in sources:
         _build.load(src)
     print(f"build: {', '.join(s + '.cu' for s in sources)} in "
           f"{time.perf_counter() - t0:.1f} s ("
           + ", ".join(_build.library_path(s).name for s in sources) + ")")
+    for line in ptxas_summary(ptxas.getvalue()):
+        print(f"ptxas {line}")
 
     # ---- phase 3: B2 against its plain version -----------------------------
     for dtype in (torch.float64, torch.float32):
@@ -2841,12 +2901,16 @@ def main(argv=None) -> int:
         args_ = multi_case(TB, {"depth": 6, "block_size": 96}, device, dtype,
                            16, False)
         got = TM.advance_k_cuda(*args_)
+        again = TM.advance_k_cuda(*args_)
         torch.cuda.synchronize()
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              f"two B3 calls on the same input differ ({dtype})")
         b3_err, ulps = compare_multi(got, TM.advance_k_plain(*args_), dtype,
                                      16)
         print(f"B3 parity d6b96 k=16 rk2 {str(dtype)[6:]}: max |du| "
-              f"{b3_err:.3e} ({ulps:.2f} ulps of its cell); a grid of "
-              f"{TM.grid_size(dtype)} CTAs of 256 threads")
+              f"{b3_err:.3e} ({ulps:.2f} ulps of its cell); two calls give "
+              f"the same bits (state and rows)")
+    del again
     b3["args"] = args_
     del got
 
@@ -2987,6 +3051,25 @@ def main(argv=None) -> int:
           + f"); bound {b3_bound[0]:.4f} ms ({b3_bound[1]}, {b3_ops:.4e} "
           f"operations; B2 advance bound {b2_bound[0]:.4f} ms, "
           f"{b2_bound[1]})")
+    split = kernel_split(kernel, 2)
+    total = sum(us for us, _ in split.values())
+    check(split["b3_sweep1"][1] == split["b3_sweep2"][1] == 32
+          and split["b3_stage_end"][1] == 32,
+          f"a 16-step RK2 call ran B3's kernels {split}, not 32 a stage "
+          f"kernel")
+    print("B3 kernels, one call of 16 RK2 steps at d6b96 float32 "
+          "(torch.profiler, device time and launches per call): " + "; ".join(
+              f"{name} {us / 1e3:.4f} ms in {n:.0f}"
+              for name, (us, n) in split.items())
+          + f"; {total / 1e3:.4f} ms of kernels on {smi}")
+    for dtype in (torch.float32, torch.float64):
+        info = TM.kernel_info(dtype)
+        print(f"B3 kernels {str(dtype)[6:]} (cudaFuncGetAttributes, "
+              f"occupancy calculator): " + "; ".join(
+                  f"{name} {k['registers']} registers, {k['local_bytes']} B "
+                  f"local, {k['static_smem'] + k['dynamic_smem']} B shared, "
+                  f"{k['threads']} threads, {k['ctas_per_sm']} CTAs/SM"
+                  for name, k in info.items()))
     if args.profile:
         table, busy, _ = profile_table(kernel, 2)
         step_ms = time_ms(lambda: per_step(s0, 1), 5)

@@ -261,11 +261,11 @@ def test_b2_device_entry_is_bitwise_the_host_entry(cuda_device, dtype):
     assert bool(host[2]) == bool(dev[2])
 
 
-def multi_case(over, device, dtype, rk, live, k=4, seed=0):
+def multi_case(over, device, dtype, rk, live, k=4, seed=0, bs=16):
     """(tables, state, elements, start time, launch config) of a seeded
-    d3b16 case of an eccentric binary (the element rows of a near-circular
+    d3 case of an eccentric binary (the element rows of a near-circular
     one are ill-conditioned), live from t = 0 when `live`."""
-    base = {"depth": 3, "block_size": 16, "rk_order": rk,
+    base = {"depth": 3, "block_size": bs, "rk_order": rk,
             "density_floor": 1e-3, "eccentricity": 0.3}
     if live:
         base["begin_live_binary"] = 0.0
@@ -317,8 +317,8 @@ B3_IDS = [f"{i}-rk{rk}-{'live' if live else 'fixed'}"
 @pytest.mark.cuda
 @pytest.mark.parametrize("over,rk,live", B3_CASES, ids=B3_IDS)
 def test_b3_matches_plain_f64(cuda_device, over, rk, live):
-    """Four steps in one cooperative launch against four plain steps,
-    float64; depth 3 has same, coarse and fine faces."""
+    """Four steps in one call against four plain steps, float64; depth 3
+    has same, coarse and fine faces."""
     args = multi_case(over, cuda_device, torch.float64, rk, live)
     before = TM.advance_k_cuda.launches
     got = TM.advance_k_cuda(*args)
@@ -354,4 +354,60 @@ def test_b3_fault_flag_and_dispatch(cuda_device):
     assert TM.advance_k_cuda.launches == before + 1
     with pytest.raises(TypeError):
         TM.advance_k_cuda(t, u0.float(), e10, t0, mc)
-    assert TM.grid_size(torch.float64) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_b3_kernels_fit_on_the_card(cuda_device, dtype):
+    """Every kernel of B3 has a CTA of its threads resident on an SM, sweep
+    2 with its shared-memory tile; the sweeps run at least two CTAs."""
+    info = TM.kernel_info(dtype)
+    assert set(info) == set(TM.KERNELS)
+    for name, k in info.items():
+        assert k["ctas_per_sm"] >= 1 and k["registers"] >= 1, name
+    assert info["b3_sweep1"]["ctas_per_sm"] >= 2
+    assert info["b3_sweep2"]["ctas_per_sm"] >= 2
+    assert info["b3_sweep2"]["dynamic_smem"] > 48 * 1024
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_b3_gives_the_same_bits_twice(cuda_device, dtype):
+    """No atomics: two calls on the same input give the same state and
+    rows, bit for bit."""
+    args = multi_case({"conserve_linear_p": 0}, cuda_device, dtype, 2, True)
+    u1, rows1 = TM.advance_k_cuda(*args)
+    u2, rows2 = TM.advance_k_cuda(*args)
+    assert torch.equal(u1, u2)
+    assert torch.equal(rows1, rows2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("rk,live", [(1, False), (2, True)],
+                         ids=["rk1-fixed", "rk2-live"])
+def test_b3_block_size_the_tile_does_not_divide(cuda_device, rk, live,
+                                                dtype):
+    """Block 40 at depth 3: neither type's tile divides it (clipped tiles
+    of 8 cells), and every face direction has coarser and finer
+    neighbors."""
+    args = multi_case({"conserve_linear_p": 0}, cuda_device, dtype, rk,
+                      live, bs=40)
+    cases = args[0].tab[:, :, 0].cpu()
+    for f in range(4):
+        assert set(cases[:, f].tolist()) == {0, 1, 2}
+    assert_multi_close(TM.advance_k_cuda(*args), TM.advance_k_plain(*args),
+                       dtype, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_b3_power_of_two_spacing(cuda_device, dtype):
+    """Block 24 at depth 3: every block's spacing is a power of two (as on
+    the flagship's d6b96 mesh), so the sweeps multiply by its exact
+    inverse where they divide by it elsewhere."""
+    args = multi_case({}, cuda_device, dtype, 2, True, bs=24)
+    spacing = args[0].spacing64.cpu().numpy()
+    assert (np.frexp(spacing)[0] == 0.5).all()
+    assert_multi_close(TM.advance_k_cuda(*args), TM.advance_k_plain(*args),
+                       dtype, 4)
