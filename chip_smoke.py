@@ -12,8 +12,10 @@ exits non-zero and prints no result):
    cloud_update.cu (B4), amrsand_step.cu (B6), sand3d_step.cu (B7),
    binary_update.cu (B11a, B11b), binary_advance_strips.cu (B11c) and
    iso2d_ladder.cu (B8, B9, B10a-c), one nvcc each, started together;
-   binary_multi.cu with -Xptxas=-v, whose registers and spills for each
-   B3 kernel it prints;
+   binary_multi.cu, iso2d_step.cu and iso2d_ladder.cu with -Xptxas=-v,
+   whose registers and spills for each B3 kernel and each column-march
+   kernel (B1's and B9's stage, csrc/iso2d_march.cuh) it prints, with the
+   march kernels' shared memory and CTAs an SM;
 3. B2 parity: kernel B2 against its plain PyTorch version on the card, at
    depth 3 / block 16 over {conserve_linear_p} x {hlle, hllc} x {plm, pcm}
    and at the main path's shape (depth 6 / block 96), each in float64 at
@@ -63,7 +65,8 @@ exits non-zero and prints no result):
    JAX) through B1, the marginal rate between 56 and 4,056 steps, median of
    5 pairs timed with CUDA events, in zone-updates per second;
 15. timing at 2048^2 float32, in turns: B1 and advance_n_plain per step and
-   per 16-step call, beside the bound;
+   per 16-step call, beside the bound and the earlier tile design's times
+   (B1_TILE_*);
 16. B5 parity: kernel B5 (csrc/sedov_step.cu) against advance_n_plain on
    the card over {euler, srhd (warm and cold)} x {pcm, plm, weno5} x
    {float64, float32}, at 1,000 cells (no TPU rule allows it) for n in
@@ -165,7 +168,7 @@ exits non-zero and prints no result):
    against ``shards=2`` (B9's plain version on the CPU), float64, 12 steps;
 38. kh sharded main path: ``kh N=2048 shards=-1`` (float32, rk1 hlle)
    through kh.setup() and kh.run() for 2,000 steps, then rk2 hllc for
-   600, every B9 launch counted (one a shard and grain of 4 steps); prints
+   600, every B9 call counted (one a shard and grain of 4 steps); prints
    the whole-run rates beside phase 13's B1 rates;
 39. the ladder's bench-shaped rates: bench.py's run_pallas (B9, G = 4, TX
    = 256) and run_pallas_v3 (B10c, G = 4, tile 64 x 1024) protocol, the
@@ -174,7 +177,8 @@ exits non-zero and prints no result):
    extension or strips; every B10a-c launch counted;
 40. timing at 2048^2 float32, in turns: B9 (4 steps a call), B10a, B10b
    and B10c (4 steps a call) against their plain versions, beside the
-   bound; each new phase prints its wall time;
+   bound, B9 also beside the earlier window design's time (B9_WINDOW_*);
+   each new phase prints its wall time;
 41. B8 parity: kernel B8 (csrc/iso2d_ladder.cu, the locally isothermal
    window step) against its plain version, G in {1, 2, 4} at 96 x 160 in
    tiles of 32 x 32, in a domain beside the origin and one across r = 0,
@@ -310,6 +314,12 @@ B1_OPS_CELL_STAGE = {"hlle": 2 + 66 + 12 + 96 + 18,
                      "hllc": 2 + 66 + 12 + 114 + 18}
 B1_OPS_CELL_RK2_STEP = 6
 B1_VALUES_PER_CELL = 6
+# Kernel B1's earlier design (16 x 32 shared-memory tiles, every half-slope
+# taken twice, before the column march of csrc/iso2d_march.cuh): its times
+# at 2048^2 float32 rk1 hlle, one-step call and 16-step call, from PERF.md
+# section 6's B1 row (NVIDIA H100 80GB HBM3, 700.00 W); phase 15 prints
+# them beside the march's
+B1_TILE_STEP_MS, B1_TILE_CALL16_MS = 0.1100, 1.7536
 # phase 11: the odd shape and its step counts; phase 13's step counts
 B1_ODD_SHAPE = (96, 160)
 B1_ODD_STEPS = (1, 3, 16)
@@ -496,6 +506,11 @@ REGRID_ARGS = ["binary", "depth=4", "block_size=8", "regrid=1", "rgi=0.01",
 # ladder_bound counts those updates (window_updates). Bytes: each input
 # (the state and its strips, or the extended state) read once, the state
 # written once. B10a and B10b take one step a call, B9 and B10c G.
+# Kernel B9's earlier design (512-thread CTAs of 32 x 32 cells in 48 x 48
+# windows): its time per 4-step call at 2048^2 float32 rk1 hlle in stripes
+# of 256, from PERF.md section 6's B9 row (NVIDIA H100 80GB HBM3, 700.00
+# W); phase 40 prints it beside the march's
+B9_WINDOW_CALL_MS = 0.6610
 # phase 35's odd shape (no TPU rule allows it): B9 in stripes of 32 with
 # G = 2, B10b and B10c in tiles of 32 x 32
 LADDER_ODD = (96, 160)
@@ -748,6 +763,33 @@ def kernel_split(fn, reps):
     return {k: tuple(v) for k, v in split.items()}
 
 
+def march_summary(log):
+    """One line per column-march kernel instance (csrc/iso2d_march.cuh) of
+    an nvcc -Xptxas=-v log: its type and solver, registers, spills and
+    shared memory."""
+    lines, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*march_kernelI([fd])Lb([01])",
+                      line)
+        if m:
+            name = (f"march_kernel<{'float' if m.group(1) == 'f' else 'double'}"
+                    f", {'hllc' if m.group(2) == '1' else 'hlle'}>")
+            continue
+        if "Function properties for" in line:
+            name = None
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = f"{m.group(1)} B spill stores"
+            continue
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and name:
+            lines.append(f"{name}: {m.group(1)} registers, {spill}, "
+                         f"{m.group(2)} B shared")
+            name = None
+    return lines
+
+
 def ptxas_summary(log):
     """One line per B3 kernel instance of an nvcc -Xptxas=-v log: its
     registers, stack frame and spills."""
@@ -972,7 +1014,7 @@ def drive_kh(KH, wrapper, argv, steps, device):
 def check_kh(final, log, samples, calls, n, steps, path, grain=None,
              shards=1):
     """A kh run's end: the state's shape, finite values, positive density,
-    the mass kept, every chunk one B1 call (or, sharded, one B9 launch a
+    the mass kept, every chunk one B1 call (or, sharded, one B9 call a
     shard and grain of `grain` steps); returns the chunk kzps."""
     import torch
     u = final.solution.conserved
@@ -2356,7 +2398,7 @@ def ladder_phases(device, smi, b1):
                                              SHARDED_STEPS)))
             want = n * SHARDED_STEPS // LADDER_G
             check(V4.step_v4_strips_cuda.launches == want,
-                  f"{V4.step_v4_strips_cuda.launches} B9 launches on {n} "
+                  f"{V4.step_v4_strips_cuda.launches} B9 calls on {n} "
                   f"shards, not {want}")
         b1_run = T1.advance_n_cuda(u, SHARDED_STEPS, **base, rk_order=rk,
                                    riemann=riemann)
@@ -2369,7 +2411,7 @@ def ladder_phases(device, smi, b1):
             b1_bar(runs[0], b1_run, f32)
         print(f"sharded {KH_N}^2 float32 rk{rk} {riemann}: "
               f"make_advance_v4_sharded([{device}] * 4) {SHARDED_STEPS} steps"
-              f" ({4 * SHARDED_STEPS // LADDER_G} B9 launches) bitwise equal "
+              f" ({4 * SHARDED_STEPS // LADDER_G} B9 calls) bitwise equal "
               f"to one shard; against B1 "
               + ("bitwise" if same else "within the ulp bar, not bitwise"))
     del runs, b1_run
@@ -2411,7 +2453,7 @@ def ladder_phases(device, smi, b1):
                      "sharded_b9", grain=LADDER_G, shards=ncard)
     rate = KH_STEPS * KH_N * KH_N / wall
     print(f"kh sharded main path N={KH_N} shards=-1 ({ncard} card) rk1 hlle "
-          f"float32: {KH_STEPS} steps in {b9_main} B9 launches "
+          f"float32: {KH_STEPS} steps in {b9_main} B9 calls "
           f"({len(rates)} chunks), {wall:.4f} s wall; whole-run {rate:.6e} "
           f"zone-updates/s against B1's {b1['kh']:.6e} (phase 13) on {smi}")
     final, log, wall, samples, calls = drive_kh(
@@ -2421,7 +2463,7 @@ def ladder_phases(device, smi, b1):
              grain=LADDER_G, shards=ncard)
     rate2 = KH_RK2_STEPS * KH_N * KH_N / wall
     print(f"kh sharded N={KH_N} rk2 hllc float32: {KH_RK2_STEPS} steps in "
-          f"{calls} B9 launches, {wall:.4f} s wall; whole-run {rate2:.6e} "
+          f"{calls} B9 calls, {wall:.4f} s wall; whole-run {rate2:.6e} "
           f"zone-updates/s against B1's {b1['kh2']:.6e} on {smi}")
     del final
     print(f"phase 38: {time.perf_counter() - t0:.1f} s")
@@ -2496,11 +2538,13 @@ def ladder_phases(device, smi, b1):
                              tile_updates((nx, ny), LADDER_V3_TILE, G))}
     steps = {"b9": G, "b10a": 1, "b10b": 1, "b10c": G}
     for k, (ms, plain_ms, runs) in timed.items():
+        earlier = (f"; the earlier window design {B9_WINDOW_CALL_MS:.4f} ms a "
+                   f"call (PERF.md)" if k == "b9" else "")
         print(f"time {KH_N}^2 float32 rk1 hlle {k}: {ms:.4f} ms a call of "
               f"{steps[k]} steps ({ms / steps[k]:.4f} ms a step) vs plain "
               f"{plain_ms:.4f} ms (runs " + " ".join(f"{r:.4f}" for r in runs)
               + f"); bound {bounds[k][0]:.4f} ms ({bounds[k][1]}); B1 "
-              f"{b1['step_ms']:.4f} ms a step (phase 15) on {smi}")
+              f"{b1['step_ms']:.4f} ms a step (phase 15){earlier} on {smi}")
     print(f"phase 40: {time.perf_counter() - t0:.1f} s")
 
     names = {"b9": ("iso2d_step_v4 (B9)",
@@ -2800,19 +2844,39 @@ def main(argv=None) -> int:
                "cloud_update", "amrsand_step", "sand3d_step",
                "binary_update", "binary_advance_strips", "iso2d_ladder")
     t0 = time.perf_counter()
-    ptxas = io.StringIO()
-    # only binary_multi's build prints (its -Xptxas=-v report)
-    with contextlib.redirect_stdout(ptxas), \
+    # the -Xptxas=-v reports of these, kept beside their libraries
+    reported = ("binary_multi", "iso2d_step", "iso2d_ladder")
+    with contextlib.redirect_stdout(io.StringIO()), \
             ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(lambda s: _build.build(
-            s, verbose=s == "binary_multi"), sources))
+        list(pool.map(lambda s: _build.build(s, verbose=s in reported),
+                      sources))
     for src in sources:
         _build.load(src)
     print(f"build: {', '.join(s + '.cu' for s in sources)} in "
           f"{time.perf_counter() - t0:.1f} s ("
           + ", ".join(_build.library_path(s).name for s in sources) + ")")
-    for line in ptxas_summary(ptxas.getvalue()):
+    logs = {}
+    for s in reported:
+        check(_build.ptxas_log_path(s).exists(),
+              f"no -Xptxas=-v report of {s}.cu")
+        logs[s] = _build.ptxas_log_path(s).read_text()
+    for line in ptxas_summary(logs["binary_multi"]):
         print(f"ptxas {line}")
+    from mara3_tpu_torch.kernels import iso2d_step_v4 as V4
+    for src, mod in (("iso2d_step", T1), ("iso2d_ladder", V4)):
+        marches = march_summary(logs[src])
+        check(len(marches) == 4, f"{src}.cu's report lists "
+              f"{len(marches)} march kernels, not 4")
+        for line in marches:
+            print(f"ptxas {src}.cu {line}")
+        for dtype in (torch.float32, torch.float64):
+            for riemann in ("hlle", "hllc"):
+                info = mod.kernel_info(dtype, riemann)
+                print(f"{src}.cu march_kernel {str(dtype)[6:]} {riemann}: "
+                      f"{info['registers']} registers, "
+                      f"{info['local_bytes']} B local, {info['static_smem']} "
+                      f"B shared, {info['ctas_per_sm']} CTAs an SM "
+                      f"({smi})")
 
     # ---- phase 3: B2 against its plain version -----------------------------
     for dtype in (torch.float64, torch.float32):
@@ -3206,7 +3270,9 @@ def main(argv=None) -> int:
           + " ".join(f"{r:.4f}" for r in runs16) + f"); bound "
           f"{step_bound[0]:.4f} ms a step ({step_bound[1]}: also the floor "
           f"of a design that moves the state every step), {b1_bnd[0]:.4f} "
-          f"ms per 16 steps ({b1_bnd[1]})")
+          f"ms per 16 steps ({b1_bnd[1]}); the earlier tile design "
+          f"{B1_TILE_STEP_MS:.4f} ms a step, {B1_TILE_CALL16_MS:.4f} ms per "
+          f"16 steps (PERF.md) on {smi}")
     if args.profile:
         kh_u = u.permute(1, 2, 0).contiguous()
         kh_adv = dict(kh_kw, kernel=True)

@@ -1,6 +1,7 @@
 // The per-face and per-cell arithmetic of the periodic iso2d step (PLM with
 // sign-bit half-slopes, HLLE or HLLC, the conservative update), shared by
-// kernel B1 (iso2d_step.cu) and kernels B8, B9, B10a-c (iso2d_ladder.cu).
+// kernels B1 and B9 (the column march, iso2d_march.cuh) and kernels B8 and
+// B10a-c (iso2d_ladder.cu).
 //
 // Each function copies the TPU kernels' own operation order
 // (mara3_tpu/kernels/iso2d_step.py: _plm_half, _hlle_1d, _hllc_1d; the
@@ -37,6 +38,20 @@ Params<T> make_params(double cs2, double dtdx, double dtdy, double theta) {
   return p;
 }
 
+// the sign bits of a, b and c agree: the sign bit of (a ^ b) | (b ^ c) is
+// clear (one three-input logic operation and a test)
+__device__ __forceinline__ bool same_sign(float a, float b, float c) {
+  const int ia = __float_as_int(a), ib = __float_as_int(b),
+            ic = __float_as_int(c);
+  return ((ia ^ ib) | (ib ^ ic)) >= 0;
+}
+
+__device__ __forceinline__ bool same_sign(double a, double b, double c) {
+  const long long ia = __double_as_longlong(a), ib = __double_as_longlong(b),
+                  ic = __double_as_longlong(c);
+  return ((ia ^ ib) | (ib ^ ic)) >= 0;
+}
+
 // 0.5 * the minmod slope: copysign(min |.|, a) when the three sign bits
 // agree, else 0 (mara3_tpu/kernels/iso2d_step.py::_plm_half)
 template <typename T>
@@ -44,9 +59,8 @@ __device__ __forceinline__ T plm_half(T yl, T y0, T yr, T half_theta) {
   const T a = (y0 - yl) * half_theta;
   const T b = (yr - yl) * T(0.25);
   const T c = (yr - y0) * half_theta;
-  const bool sa = signbit(a), sb = signbit(b), sc = signbit(c);
   const T m = fmin(fmin(fabs(a), fabs(b)), fabs(c));
-  return (sa == sb && sb == sc) ? copysign(m, a) : T(0);
+  return same_sign(a, b, c) ? copysign(m, a) : T(0);
 }
 
 // HLLE flux along the face normal from (density, normal velocity,
@@ -114,19 +128,28 @@ __device__ __forceinline__ void riemann(T sgl, T vnl, T vtl, T sgr, T vnr,
   }
 }
 
-// The flux through the face between cells a and b at the face's cs^2 and
-// cs, from the primitives (sigma, vx, vy) of the four cells m, a, b, pp in
-// a row along the face normal: x (Y false) or y (Y true). For a y face the
-// normal velocity is vy, so the solver's normal-momentum flux is the y one.
+// The half-slopes gh of a cell's primitives (sigma, vx, vy) c from its
+// neighbours lo and hi along one axis: face_flux's first step, which the
+// column march (iso2d_march.cuh) takes once a cell and axis
+template <typename T>
+__device__ __forceinline__ void half_slopes(const T lo[3], const T c[3],
+                                            const T hi[3], T half_theta,
+                                            T gh[3]) {
+  for (int q = 0; q < 3; ++q) gh[q] = plm_half(lo[q], c[q], hi[q], half_theta);
+}
+
+// The flux through the face between cells a and b along x (Y false) or y
+// (Y true), from their primitives and half-slopes (ga, gb), at the face's
+// cs^2 and cs: face_flux's second step. For a y face the normal velocity is
+// vy, so the solver's normal-momentum flux is the y one.
 template <typename T, bool HLLC, bool Y>
-__device__ __forceinline__ void face_flux(const T m[3], const T a[3],
-                                          const T b[3], const T pp[3],
-                                          T half_theta, T cs2, T cs,
-                                          T f[3]) {
+__device__ __forceinline__ void face_from_slopes(const T a[3], const T ga[3],
+                                                 const T b[3], const T gb[3],
+                                                 T cs2, T cs, T f[3]) {
   T L[3], R[3];
   for (int q = 0; q < 3; ++q) {
-    L[q] = a[q] + plm_half(m[q], a[q], b[q], half_theta);
-    R[q] = b[q] - plm_half(a[q], b[q], pp[q], half_theta);
+    L[q] = a[q] + ga[q];
+    R[q] = b[q] - gb[q];
   }
   if (Y) {
     T g[3];
@@ -137,6 +160,20 @@ __device__ __forceinline__ void face_flux(const T m[3], const T a[3],
   } else {
     riemann<T, HLLC>(L[0], L[1], L[2], R[0], R[1], R[2], cs2, cs, f);
   }
+}
+
+// The flux through the face between cells a and b at the face's cs^2 and
+// cs, from the primitives of the four cells m, a, b, pp in a row along the
+// face normal: x (Y false) or y (Y true); the two steps above
+template <typename T, bool HLLC, bool Y>
+__device__ __forceinline__ void face_flux(const T m[3], const T a[3],
+                                          const T b[3], const T pp[3],
+                                          T half_theta, T cs2, T cs,
+                                          T f[3]) {
+  T ga[3], gb[3];
+  half_slopes(m, a, b, half_theta, ga);
+  half_slopes(a, b, pp, half_theta, gb);
+  face_from_slopes<T, HLLC, Y>(a, ga, b, gb, cs2, cs, f);
 }
 
 // at the constant cs^2 and cs of p (kernels B1, B9, B10a-c)
@@ -170,11 +207,6 @@ __device__ __forceinline__ T cell_update(T u, T fxl, T fxr, T fyl, T fyr,
                                          const Params<T>& p) {
   const T d = (fxr - fxl) * p.dtdx + (fyr - fyl) * p.dtdy;
   return u - d;
-}
-
-__device__ __forceinline__ int wrap(int i, int n) {
-  const int r = i % n;
-  return r < 0 ? r + n : r;
 }
 
 }  // namespace iso2d

@@ -21,7 +21,7 @@
 // Each computes what its plain version in kernels/iso2d_step_v{4,1,2,3}.py
 // or iso2d_step_li.py computes, operation for operation, through the
 // per-face and per-cell functions of iso2d_cell.cuh that kernel B1 uses
-// too.
+// too; B9 through B1's column march (iso2d_march.cuh).
 //
 // Bound. A step needs about 194 operations a cell with HLLE (212 with HLLC),
 // 0.024 ms at 2048^2 float32 at 33.5e12 operations a second (no FMAs under
@@ -39,15 +39,26 @@
 //     extended buffer in device memory and computing its four face fluxes
 //     itself (each face twice, once by each of its cells: the same inputs
 //     and operations, so the same bits);
-//   - B9, B10b, B10c: one CTA of 512 threads a CX x CY sub-tile of a stripe
-//     or strip tile (CX, CY chosen by the wrapper so the window fits in
-//     shared memory), never straddling two of them, so every halo value
-//     comes from that stripe's or tile's own strips, as on the TPU. The CTA
-//     loads its window, (CX + 2h) x (CY + 2h) conserved cells, into
-//     dynamic shared memory once, runs all G steps there (primitives, x and
-//     y face fluxes, the update in place; for rk2 the step's start is kept
-//     for the Heun average), the valid region shrinking by 2 a side a
-//     stage, and writes only the sub-tile. Device memory sees one read of
+//   - B9: a C loop of the column march's stages (iso2d_march.cuh), G for
+//     rk1 and 2G for rk2, each launch over every stripe's window [3, TX +
+//     2h, ny] whose valid rows shrink by 2 a side a stage: the first stage
+//     reads the stripe's rows and its strips through a row map, the middle
+//     stages two window buffers [gi, 3, TX + 2h, ny] (rk2's second stage
+//     writes the Heun average in place over the step's start, as B1 does),
+//     the last writes the stripe's rows of out. Each stripe is computed
+//     from its own strips alone, as on the TPU, so the windows are per
+//     stripe, not one global state: caller-built strips need not agree
+//     with the neighbouring stripe. A stage moves about WX / TX of the
+//     state, and computes each half-slope and face once, where a window
+//     of the stripe's sub-tile would recompute the x and y halos;
+//   - B10b, B10c: one CTA of 512 threads a CX x CY sub-tile of a strip
+//     tile (CX, CY chosen by the wrapper so the window fits in shared
+//     memory), never straddling two of them, so every halo value comes
+//     from that tile's own strips, as on the TPU. The CTA loads its window,
+//     (CX + 2h) x (CY + 2h) conserved cells, into dynamic shared memory
+//     once, runs all G rk1 HLLE steps there (primitives, x and y face
+//     fluxes, the update in place), the valid region shrinking by 2 a side
+//     a stage, and writes only the sub-tile. Device memory sees one read of
 //     the window and one write of the sub-tile per launch.
 //   - B10b is B10c's kernel at G = 1 (as v2 is v3 at G = 1 on the TPU).
 //   - B8 is B10c's kernel with the sound speed formed at each face from the
@@ -62,7 +73,7 @@
 
 #include <cuda_runtime.h>
 
-#include "iso2d_cell.cuh"
+#include "iso2d_march.cuh"
 
 extern __shared__ __align__(16) unsigned char ladder_smem[];
 
@@ -70,21 +81,20 @@ namespace {
 
 using iso2d::Params;
 
-constexpr int kThreads = 512;       // B9, B10b, B10c
+constexpr int kThreads = 512;       // B8, B10b, B10c
 constexpr int kCellRows = 8;        // B10a: a block of 8 x 32 cells
 constexpr int kCellCols = 32;
 
 // The window's arrays in dynamic shared memory, each [3][WX][WY]: the
 // conserved state U (updated in place), the primitives P, the x face
-// fluxes FX (face r between rows r - 1 and r), the y face fluxes FY (face
-// c between columns c - 1 and c), and for rk2 the step's start U0.
+// fluxes FX (face r between rows r - 1 and r) and the y face fluxes FY
+// (face c between columns c - 1 and c).
 template <typename T>
 struct Window {
   T* U;
   T* P;
   T* FX;
   T* FY;
-  T* U0;
   int WX, WY;
   __device__ __forceinline__ int at(int q, int r, int c) const {
     return (q * WX + r) * WY + c;
@@ -113,7 +123,7 @@ struct Walk {
 };
 
 template <typename T>
-__device__ __forceinline__ Window<T> carve(int WX, int WY, bool rk2) {
+__device__ __forceinline__ Window<T> carve(int WX, int WY) {
   T* base = reinterpret_cast<T*>(ladder_smem);
   const int n = 3 * WX * WY;
   Window<T> w;
@@ -121,7 +131,6 @@ __device__ __forceinline__ Window<T> carve(int WX, int WY, bool rk2) {
   w.P = base + n;
   w.FX = base + 2 * n;
   w.FY = base + 3 * n;
-  w.U0 = rk2 ? base + 4 * n : nullptr;
   w.WX = WX;
   w.WY = WY;
   return w;
@@ -138,15 +147,13 @@ struct Local {
   int li0, lj0;
 };
 
-// One forward-Euler stage of the valid region [r0, r1) x [c0, c1) of U:
-// afterwards [r0 + 2, r1 - 2) x [c0 + 2, c1 - 2) holds E(U), or with
-// `average` 0.5 * (U0 + E(U)). With LI (B8, HLLE only) each face takes its
-// own sound speed from `loc`, the stage being s = r0 / 2 = c0 / 2.
-template <typename T, bool HLLC, bool LI>
+// One forward-Euler HLLE stage of the valid region [r0, r1) x [c0, c1) of
+// U: afterwards [r0 + 2, r1 - 2) x [c0 + 2, c1 - 2) holds E(U). With LI
+// (B8) each face takes its own sound speed from `loc`, the stage being s =
+// r0 / 2 = c0 / 2.
+template <typename T, bool LI>
 __device__ void window_stage(const Window<T>& w, int r0, int r1, int c0,
-                             int c1, bool average, const Params<T>& p,
-                             const Local<T>& loc) {
-  static_assert(!(LI && HLLC), "B8 solves with HLLE");
+                             int c1, const Params<T>& p, const Local<T>& loc) {
   T ox = T(0), oy = T(0);
   if (LI) {
     const T off = T(double(r0) * loc.dx_d);   // (2 s) dx
@@ -184,7 +191,7 @@ __device__ void window_stage(const Window<T>& w, int r0, int r1, int c0,
       iso2d::face_flux<T, false, false>(m, x0, x1, pp, p.half_theta, cs2,
                                       sqrt(cs2), f);
     } else {
-      iso2d::face_flux<T, HLLC, false>(m, x0, x1, pp, p, f);
+      iso2d::face_flux<T, false, false>(m, x0, x1, pp, p, f);
     }
     for (int q = 0; q < 3; ++q) w.FX[w.at(q, a, c)] = f[q];
   }
@@ -207,7 +214,7 @@ __device__ void window_stage(const Window<T>& w, int r0, int r1, int c0,
       iso2d::face_flux<T, false, true>(m, y0, y1, pp, p.half_theta, cs2,
                                      sqrt(cs2), f);
     } else {
-      iso2d::face_flux<T, HLLC, true>(m, y0, y1, pp, p, f);
+      iso2d::face_flux<T, false, true>(m, y0, y1, pp, p, f);
     }
     for (int q = 0; q < 3; ++q) w.FY[w.at(q, r, b)] = f[q];
   }
@@ -219,76 +226,21 @@ __device__ void window_stage(const Window<T>& w, int r0, int r1, int c0,
                                      w.FX[w.at(q, r + 1, c)],
                                      w.FY[w.at(q, r, c)],
                                      w.FY[w.at(q, r, c + 1)], p);
-      w.U[w.at(q, r, c)] = average ? T(0.5) * (w.U0[w.at(q, r, c)] + e) : e;
+      w.U[w.at(q, r, c)] = e;
     }
   }
   __syncthreads();
 }
 
-// G steps of the window [0, wx) x [0, wy) loaded in U: rk 1, or SSP-RK2
-// (u + E(E(u))) / 2. The result is U's region [h, wx - h) x [h, wy - h),
-// h = 2 G rk.
-template <typename T, bool HLLC, bool LI>
+// G rk1 steps of the window [0, wx) x [0, wy) loaded in U. The result is
+// U's region [h, wx - h) x [h, wy - h), h = 2 G.
+template <typename T, bool LI>
 __device__ void window_steps(const Window<T>& w, int wx, int wy, int G,
-                             int rk, const Params<T>& p,
-                             const Local<T>& loc) {
+                             const Params<T>& p, const Local<T>& loc) {
   int r0 = 0, r1 = wx, c0 = 0, c1 = wy;
   for (int g = 0; g < G; ++g) {
-    if (rk == 2) {
-      // the step's start, where the step's result lands
-      const int nr = r1 - r0 - 8;
-      for (Walk k(c1 - c0 - 8); k.r < nr; k.next()) {
-        const int r = r0 + 4 + k.r, c = c0 + 4 + k.c;
-        for (int q = 0; q < 3; ++q) w.U0[w.at(q, r, c)] = w.U[w.at(q, r, c)];
-      }
-      window_stage<T, HLLC, LI>(w, r0, r1, c0, c1, false, p, loc);
-      r0 += 2; r1 -= 2; c0 += 2; c1 -= 2;
-    }
-    window_stage<T, HLLC, LI>(w, r0, r1, c0, c1, rk == 2, p, loc);
+    window_stage<T, LI>(w, r0, r1, c0, c1, p, loc);
     r0 += 2; r1 -= 2; c0 += 2; c1 -= 2;
-  }
-}
-
-// B9: the CTA's sub-tile is rows [li0, li0 + cx) of stripe s and columns
-// [j0, j0 + cy); its window's rows below and above the stripe come from
-// lo[s], hi[s] [3, h, ny], its columns wrap in y.
-template <typename T, bool HLLC>
-__global__ void __launch_bounds__(kThreads)
-stripes_kernel(const T* __restrict__ u, const T* __restrict__ lo,
-               const T* __restrict__ hi, T* __restrict__ out, int nx, int ny,
-               int TX, int h, int G, int rk, int CX, int CY, int subx,
-               Params<T> p) {
-  const int s = blockIdx.y / subx, li0 = (blockIdx.y % subx) * CX;
-  const int j0 = blockIdx.x * CY;
-  const int cx = min(CX, TX - li0), cy = min(CY, ny - j0);
-  const int wx = cx + 2 * h, wy = cy + 2 * h;
-  const Window<T> w = carve<T>(CX + 2 * h, CY + 2 * h, rk == 2);
-  const long long plane = (long long)nx * ny;
-  const long long strip = (long long)h * ny;
-  for (Walk k(wy); k.r < wx; k.next()) {
-    const int a = k.r, b = k.c;
-    const int x = li0 + a - h;
-    int y = j0 + b - h;
-    if (y < 0 || y >= ny) y = iso2d::wrap(y, ny);
-    for (int q = 0; q < 3; ++q) {
-      const long long sq = (long long)(s * 3 + q) * strip;
-      T v;
-      if (x < 0) {
-        v = lo[sq + (long long)(x + h) * ny + y];
-      } else if (x >= TX) {
-        v = hi[sq + (long long)(x - TX) * ny + y];
-      } else {
-        v = u[q * plane + (long long)(s * TX + x) * ny + y];
-      }
-      w.U[w.at(q, a, b)] = v;
-    }
-  }
-  __syncthreads();
-  window_steps<T, HLLC, false>(w, wx, wy, G, rk, p, Local<T>());
-  for (Walk k(cy); k.r < cx; k.next()) {
-    const int a = k.r, b = k.c;
-    const long long c = (long long)(s * TX + li0 + a) * ny + j0 + b;
-    for (int q = 0; q < 3; ++q) out[q * plane + c] = w.U[w.at(q, h + a, h + b)];
   }
 }
 
@@ -309,7 +261,7 @@ tiles_kernel(const T* __restrict__ u, const T* __restrict__ north,
   const int tj = blockIdx.x / suby, lj0 = (blockIdx.x % suby) * CY;
   const int cx = min(CX, TX - li0), cy = min(CY, TY - lj0);
   const int wx = cx + 2 * h, wy = cy + 2 * h;
-  const Window<T> w = carve<T>(CX + 2 * h, CY + 2 * h, false);
+  const Window<T> w = carve<T>(CX + 2 * h, CY + 2 * h);
   const long long plane = (long long)nx * ny;
   const long long tile = (long long)ti * gj + tj;
   const int ns = TY + 2 * h;      // a north or south strip's row
@@ -343,7 +295,7 @@ tiles_kernel(const T* __restrict__ u, const T* __restrict__ north,
     loc.li0 = li0;
     loc.lj0 = lj0;
   }
-  window_steps<T, false, LI>(w, wx, wy, G, 1, p, loc);
+  window_steps<T, LI>(w, wx, wy, G, p, loc);
   for (Walk k(cy); k.r < cx; k.next()) {
     const int a = k.r, b = k.c;
     const long long c =
@@ -394,9 +346,8 @@ cell_kernel(const T* __restrict__ ext, T* __restrict__ out, int nx, int ny,
 
 // dynamic shared memory of a window kernel's CTA
 template <typename T>
-size_t window_bytes(int CX, int CY, int h, int rk) {
-  return size_t(rk == 2 ? 5 : 4) * 3 * (CX + 2 * h) * (CY + 2 * h) *
-         sizeof(T);
+size_t window_bytes(int CX, int CY, int h) {
+  return size_t(4) * 3 * (CX + 2 * h) * (CY + 2 * h) * sizeof(T);
 }
 
 template <typename K>
@@ -406,21 +357,69 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// B9: G steps (rk 1, or 2 as the stages' Heun pairs) of every stripe's
+// window [3, WX, ny], WX = TX + 2h, as a C loop of march stages. `plan`
+// holds the stages, 5 ints each (kernels/iso2d_step_v4.stage_plan): the
+// roles of src, base and dst (kB9* below, or -1 for no base) and the
+// output rows [r_lo, r_hi) of the window. The window buffers X and Y are
+// [gi, 3, WX, ny]; the first stage reads the stripe and its strips, the
+// last writes the stripe's rows of out.
+enum B9Role { kB9Strips = 0, kB9X = 1, kB9Y = 2, kB9Out = 3 };
+
 template <typename T>
-int b9(const T* u, const T* lo, const T* hi, T* out, int nx, int ny, int TX,
-       int G, int rk, int hllc, int CX, int CY, double cs2, double dtdx,
-       double dtdy, double theta, void* stream) {
+iso2d::Rows<T> b9_rows(int role, const T* u, const T* lo, const T* hi, T* out,
+                       T* X, T* Y, int nx, int ny, int TX, int h) {
+  iso2d::Rows<T> m;
+  m.nx = nx;
+  m.ny = ny;
+  m.TX = TX;
+  m.h = h;
+  m.WX = TX + 2 * h;
+  switch (role) {
+    case kB9Strips:
+      m.mode = iso2d::kStrips;
+      m.plane = const_cast<T*>(u);
+      m.lo = const_cast<T*>(lo);
+      m.hi = const_cast<T*>(hi);
+      break;
+    case kB9X:
+      m.mode = iso2d::kWindow;
+      m.win = X;
+      break;
+    case kB9Y:
+      m.mode = iso2d::kWindow;
+      m.win = Y;
+      break;
+    case kB9Out:
+      m.mode = iso2d::kStripeOut;
+      m.plane = out;
+      break;
+  }
+  return m;
+}
+
+template <typename T>
+int b9(const T* u, const T* lo, const T* hi, T* out, T* X, T* Y, int nx,
+       int ny, int TX, int h, int hllc, const int* plan,
+       int stages, double cs2, double dtdx, double dtdy, double theta,
+       void* stream) {
   const Params<T> p = iso2d::make_params<T>(cs2, dtdx, dtdy, theta);
-  const int h = 2 * G * rk;
-  const int subx = (TX + CX - 1) / CX;
-  const dim3 grid((ny + CY - 1) / CY, (nx / TX) * subx);
-  const size_t bytes = window_bytes<T>(CX, CY, h, rk);
-  const auto kernel = hllc ? stripes_kernel<T, true> : stripes_kernel<T, false>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      u, lo, hi, out, nx, ny, TX, h, G, rk, CX, CY, subx, p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto rows = [&](int role) {
+    return role < 0 ? iso2d::Rows<T>()
+                    : b9_rows<T>(role, u, lo, hi, out, X, Y, nx, ny, TX, h);
+  };
+  const int gi = nx / TX;
+  cudaError_t err = cudaSuccess;
+  for (int k = 0; k < stages && err == cudaSuccess; ++k) {
+    const int* e = plan + 5 * k;
+    const auto src = rows(e[0]), base = rows(e[1]), dst = rows(e[2]);
+    err = hllc ? iso2d::march_stage<T, true>(src, base, dst, e[1] >= 0, e[3],
+                                             e[4], ny, gi, p, st)
+               : iso2d::march_stage<T, false>(src, base, dst, e[1] >= 0, e[3],
+                                              e[4], ny, gi, p, st);
+  }
+  return static_cast<int>(err);
 }
 
 // B8 (LI) and B10b/B10c: G steps of the tiles from their strips
@@ -432,7 +431,7 @@ int tiles(const T* u, const T* north, const T* south, const T* west,
   const int h = 2 * G;
   const int subx = (TX + CX - 1) / CX, suby = (TY + CY - 1) / CY;
   const dim3 grid((ny / TY) * suby, (nx / TX) * subx);
-  const size_t bytes = window_bytes<T>(CX, CY, h, 1);
+  const size_t bytes = window_bytes<T>(CX, CY, h);
   cudaError_t err = allow_smem(tiles_kernel<T, LI>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   tiles_kernel<T, LI><<<grid, kThreads, bytes,
@@ -495,23 +494,38 @@ const char* ladder_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// B9: G steps of u [3, nx, ny] (nx % TX == 0) into out from the strips lo,
-// hi [nx / TX, 3, 2 G rk, ny]; rk 1 or 2, hllc 0 or 1; CTA sub-tiles of
-// CX x CY. Returns a cudaError_t.
+// B9: the stages of `plan` (stages x 5 ints) on u [3, nx, ny] (nx % TX ==
+// 0) and its strips lo, hi [nx / TX, 3, h, ny] into out, through the window
+// buffers X, Y [nx / TX, 3, TX + 2h, ny]; hllc 0 or 1. Returns a
+// cudaError_t.
 int b9_strips_f32(const float* u, const float* lo, const float* hi,
-                  float* out, int nx, int ny, int TX, int G, int rk, int hllc,
-                  int CX, int CY, double cs2, double dtdx, double dtdy,
-                  double theta, void* stream) {
-  return b9<float>(u, lo, hi, out, nx, ny, TX, G, rk, hllc, CX, CY, cs2,
-                   dtdx, dtdy, theta, stream);
+                  float* out, float* X, float* Y, int nx, int ny, int TX,
+                  int h, int hllc, const int* plan, int stages, double cs2,
+                  double dtdx, double dtdy, double theta, void* stream) {
+  return b9<float>(u, lo, hi, out, X, Y, nx, ny, TX, h, hllc, plan, stages,
+                   cs2, dtdx, dtdy, theta, stream);
 }
 
 int b9_strips_f64(const double* u, const double* lo, const double* hi,
-                  double* out, int nx, int ny, int TX, int G, int rk,
-                  int hllc, int CX, int CY, double cs2, double dtdx,
-                  double dtdy, double theta, void* stream) {
-  return b9<double>(u, lo, hi, out, nx, ny, TX, G, rk, hllc, CX, CY, cs2,
-                    dtdx, dtdy, theta, stream);
+                  double* out, double* X, double* Y, int nx, int ny, int TX,
+                  int h, int hllc, const int* plan, int stages, double cs2,
+                  double dtdx, double dtdy, double theta, void* stream) {
+  return b9<double>(u, lo, hi, out, X, Y, nx, ny, TX, h, hllc, plan, stages,
+                    cs2, dtdx, dtdy, theta, stream);
+}
+
+// The march kernel's registers, local bytes, static shared memory and CTAs
+// an SM (out[0..3]); f64 and hllc 0 or 1
+int b9_kernel_info(int f64, int hllc, int* out) {
+  cudaError_t err;
+  if (f64) {
+    err = hllc ? iso2d::march_info<double, true>(out)
+               : iso2d::march_info<double, false>(out);
+  } else {
+    err = hllc ? iso2d::march_info<float, true>(out)
+               : iso2d::march_info<float, false>(out);
+  }
+  return static_cast<int>(err);
 }
 
 // B10a: one rk1 HLLE step from ext [3, nx + 4, ny + 4] into out [3, nx, ny]

@@ -21,18 +21,16 @@
 //     no launch reads what another CTA of the same launch writes (rk2's
 //     second stage writes the average in place over the step's start,
 //     which each thread reads only at its own cell);
-//   - each CTA loads a 16 x 32 tile of the three primitives with a two-cell
-//     periodic halo (index arithmetic, any nx, ny >= 4) into shared memory
-//     once, computes every x- and y-face flux of the tile once into shared
-//     memory, then updates its cells: each value is read from device memory
-//     about 1.4 times a stage (the halo) and written once;
-//   - the half-slopes are recomputed for the two faces of a cell instead of
-//     stored, trading about 66 operations a face for shared memory and a
-//     barrier.
+//   - each stage is the column march of iso2d_march.cuh on the periodic
+//     plane (rows wrap, addressed once a chunk): CTAs of W = 64 columns
+//     and chunks of up to R = 64 rows (kMarchW, kMarchR); each primitive,
+//     half-slope and face flux is computed once, each value read from
+//     device memory about (R + 4) / R times a stage and written once.
 // Temporal blocking (several steps per pass over the state, as v5's
-// G = 4 steps per stripe on the TPU) is not done here; kernels B9 and B10c
-// (iso2d_ladder.cu) do it, on the same per-face and per-cell arithmetic
-// (iso2d_cell.cuh).
+// G = 4 steps per stripe on the TPU) is not done here; the x-sharded
+// kernel B9 (iso2d_ladder.cu) runs the same march in stripe windows, and
+// B10c (iso2d_ladder.cu) blocks in time on the same per-face and per-cell
+// arithmetic (iso2d_cell.cuh).
 //
 // Built with --fmad=false, with the scalars cast to the state's type before
 // use and 0.5 * theta formed in that type, 1 / (ap - am) taken before the
@@ -41,92 +39,21 @@
 
 #include <cuda_runtime.h>
 
-#include "iso2d_cell.cuh"
+#include "iso2d_march.cuh"
 
 namespace {
 
 using iso2d::Params;
 
-constexpr int kTX = 16;          // tile rows (x)
-constexpr int kTY = 32;          // tile columns (y, contiguous)
-constexpr int kHalo = 2;
-constexpr int kPX = kTX + 2 * kHalo;
-constexpr int kPY = kTY + 2 * kHalo;
-constexpr int kThreads = 256;
-
-// One stage on one 16 x 32 tile: dst = E(src), or with `base` (rk2's second
-// stage) dst = 0.5 * (base + E(src)); base may be dst itself.
-template <typename T, bool HLLC>
-__global__ void __launch_bounds__(kThreads)
-stage_kernel(const T* __restrict__ src, const T* base, T* dst, int nx,
-             int ny, Params<T> p) {
-  __shared__ T P[3][kPX][kPY];          // sigma, vx, vy with the halo
-  __shared__ T FX[3][kTX + 1][kTY];     // x face a: between rows a-1 and a
-  __shared__ T FY[3][kTX][kTY + 1];     // y face b: between columns b-1 and b
-  const int i0 = blockIdx.y * kTX, j0 = blockIdx.x * kTY;
-  const long long plane = (long long)nx * ny;
-
-  for (int k = threadIdx.x; k < kPX * kPY; k += kThreads) {
-    const int a = k / kPY, b = k % kPY;
-    const long long c = (long long)iso2d::wrap(i0 + a - kHalo, nx) * ny
-                        + iso2d::wrap(j0 + b - kHalo, ny);
-    const T sg = src[c];
-    P[0][a][b] = sg;
-    P[1][a][b] = src[plane + c] / sg;
-    P[2][a][b] = src[2 * plane + c] / sg;
-  }
-  __syncthreads();
-
-  for (int k = threadIdx.x; k < (kTX + 1) * kTY; k += kThreads) {
-    const int a = k / kTY, b = k % kTY;
-    const int r = a + 1, s = b + kHalo;     // L cell's row in P
-    T m[3], c0[3], c1[3], pp[3], f[3];
-    for (int q = 0; q < 3; ++q) {
-      m[q] = P[q][r - 1][s];
-      c0[q] = P[q][r][s];
-      c1[q] = P[q][r + 1][s];
-      pp[q] = P[q][r + 2][s];
-    }
-    iso2d::face_flux<T, HLLC, false>(m, c0, c1, pp, p, f);
-    for (int q = 0; q < 3; ++q) FX[q][a][b] = f[q];
-  }
-  for (int k = threadIdx.x; k < kTX * (kTY + 1); k += kThreads) {
-    const int a = k / (kTY + 1), b = k % (kTY + 1);
-    const int r = a + kHalo, s = b + 1;     // L cell's column in P
-    T m[3], c0[3], c1[3], pp[3], f[3];
-    for (int q = 0; q < 3; ++q) {
-      m[q] = P[q][r][s - 1];
-      c0[q] = P[q][r][s];
-      c1[q] = P[q][r][s + 1];
-      pp[q] = P[q][r][s + 2];
-    }
-    iso2d::face_flux<T, HLLC, true>(m, c0, c1, pp, p, f);
-    for (int q = 0; q < 3; ++q) FY[q][a][b] = f[q];
-  }
-  __syncthreads();
-
-  for (int k = threadIdx.x; k < kTX * kTY; k += kThreads) {
-    const int a = k / kTY, b = k % kTY;
-    const int i = i0 + a, j = j0 + b;
-    if (i >= nx || j >= ny) continue;
-    const long long c = (long long)i * ny + j;
-    for (int q = 0; q < 3; ++q) {
-      const T e = iso2d::cell_update(src[q * plane + c], FX[q][a][b],
-                                     FX[q][a + 1][b], FY[q][a][b],
-                                     FY[q][a][b + 1], p);
-      dst[q * plane + c] = base ? T(0.5) * (base[q * plane + c] + e) : e;
-    }
-  }
-}
-
 template <typename T, bool HLLC>
 cudaError_t run(const T* u, T* out, T* scr, int nx, int ny, int n, int rk,
                 const Params<T>& p, cudaStream_t stream) {
-  const dim3 grid((ny + kTY - 1) / kTY, (nx + kTX - 1) / kTX);
   const auto stage = [&](const T* src, const T* base, T* dst) {
-    stage_kernel<T, HLLC><<<grid, kThreads, 0, stream>>>(src, base, dst, nx,
-                                                         ny, p);
-    return cudaGetLastError();
+    const iso2d::Rows<T> b = base ? iso2d::plane_rows(base, nx, ny)
+                                  : iso2d::Rows<T>();
+    return iso2d::march_stage<T, HLLC>(
+        iso2d::plane_rows(src, nx, ny), b, iso2d::plane_rows(dst, nx, ny),
+        base != nullptr, 0, nx, ny, 1, p, stream);
   };
   cudaError_t err = cudaSuccess;
   if (rk == 1) {
@@ -183,6 +110,20 @@ int b1_advance_n_f64(const double* u, double* out, double* scr, int nx,
                      double dtdy, double theta, void* stream) {
   return advance_n<double>(u, out, scr, nx, ny, n, rk, hllc, cs2, dtdx, dtdy,
                            theta, stream);
+}
+
+// The march kernel's registers, local bytes, static shared memory and CTAs
+// an SM (out[0..3]); f64 and hllc 0 or 1
+int b1_kernel_info(int f64, int hllc, int* out) {
+  cudaError_t err;
+  if (f64) {
+    err = hllc ? iso2d::march_info<double, true>(out)
+               : iso2d::march_info<double, false>(out);
+  } else {
+    err = hllc ? iso2d::march_info<float, true>(out)
+               : iso2d::march_info<float, false>(out);
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

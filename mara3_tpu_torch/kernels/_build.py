@@ -61,9 +61,12 @@ def library_path(name: str) -> Path:
 
 def build(name: str, verbose: bool = False) -> Path:
     """Compile csrc/<name>.cu unless a library of the same hash exists;
-    returns the library's path. Raises with nvcc's output on failure."""
+    returns the library's path. Raises with nvcc's output on failure. With
+    `verbose`, builds with -Xptxas=-v, prints nvcc's report and keeps it at
+    ptxas_log_path(name), rebuilding a library that has no report."""
     target = library_path(name)
-    if target.exists():
+    if target.exists() and not (verbose
+                                and not ptxas_log_path(name).exists()):
         return target
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -79,8 +82,15 @@ def build(name: str, verbose: bool = False) -> Path:
                            f"{proc.stderr}")
     if verbose:
         print(proc.stdout + proc.stderr)
+        ptxas_log_path(name).write_text(proc.stdout + proc.stderr)
     os.replace(tmp, target)
     return target
+
+
+def ptxas_log_path(name: str) -> Path:
+    """Where a verbose build of csrc/<name>.cu keeps nvcc's -Xptxas=-v
+    report (each kernel's registers, spills and shared memory)."""
+    return library_path(name).with_suffix(".ptxas.log")
 
 
 def load(name: str) -> ctypes.CDLL:

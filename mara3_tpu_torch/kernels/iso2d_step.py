@@ -19,7 +19,11 @@ rk_order 2 the Heun average 0.5 * (u0 + E(E(u0))).
   TPU kernel casts them.
 - `advance_n_cuda` is the kernel's wrapper (csrc/iso2d_step.cu: one launch
   per stage, all n steps issued by one C call on the current stream);
-  `advance_n_cuda.launches` counts its calls that launch.
+  `advance_n_cuda.launches` counts its calls that launch. Each stage is the
+  column march of csrc/iso2d_march.cuh, which kernel B9 (iso2d_step_v4.py)
+  runs too: CTAs of 64 columns marching down chunks of up to 64 rows, each
+  half-slope and face computed once; `kernel_info` reads the built
+  kernel's registers, shared memory and occupancy.
 - `advance_n` takes the plain version for a tensor on the CPU and the
   kernel for a CUDA tensor; it never falls back from one to the other.
 
@@ -193,10 +197,33 @@ def _library():
             fn.argtypes = ([_c_void_p] * 3 + [_c_int] * 5 + [_c_double] * 4
                            + [_c_void_p])
             fn.restype = _c_int
+        lib.b1_kernel_info.argtypes = [_c_int] * 2 + [ctypes.POINTER(_c_int)]
+        lib.b1_kernel_info.restype = _c_int
         lib.b1_error_string.argtypes = [_c_int]
         lib.b1_error_string.restype = ctypes.c_char_p
         lib._mara_typed = True
     return lib
+
+
+def march_info(entry, error_string, dtype, riemann):
+    """The march kernel's resources for dtype, through a library's `entry`
+    (b1_kernel_info or b9_kernel_info): registers and local_bytes a thread,
+    static_smem a CTA, ctas_per_sm (the occupancy calculator's on the
+    current card)."""
+    out = (_c_int * 4)()
+    rc = entry(int(dtype == torch.float64), RIEMANN.index(riemann), out)
+    if rc != 0:
+        raise RuntimeError("march kernel info: "
+                           + error_string(rc).decode())
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "ctas_per_sm"), out))
+
+
+def kernel_info(dtype, riemann: str = "hlle"):
+    """B1's march kernel's resources (march_info)."""
+    lib = _library()
+    return march_info(lib.b1_kernel_info, lib.b1_error_string, dtype,
+                      riemann)
 
 
 def advance_n_cuda(u, n: int, *, cs2: float, dtdx: float, dtdy: float,

@@ -128,7 +128,7 @@ def step_li_strips_cuda(u, north, south, west, east, *, G: int, geom,
     V2.check_strips(u, strips, TX, TY, h, "iso2d li tile kernel")
     _check_geom(geom, "iso2d li tile kernel")
     V1.check_kernel_args("iso2d li tile kernel", u, *strips)
-    cx, cy = cta or V1.cta_tile(h, 1, u.element_size())
+    cx, cy = cta or V1.cta_tile(h, u.element_size())
     out = torch.empty_like(u)
     with torch.cuda.device(u.device):
         rc = V1.entry("b8_tiles", u.dtype)(

@@ -22,9 +22,10 @@ package's iso2d_step_v5.py, so this module is `iso2d_step_v1`.
   never falls back from one to the other. `advance_n_v1(u, n)` runs n
   steps, extending the state before each.
 
-Shared with B8, B9, B10b and B10c: `_step_tile` (their plain step of a
-window, B8's with its per-face sound speeds), the built library and
-`cta_tile`, the CTA sub-tile whose window fits in shared memory.
+Shared with B8, B9, B10b and B10c: `_step_tile` (the plain step of a
+window, B8's with its per-face sound speeds), the built library and (for
+B8, B10b and B10c) `cta_tile`, the CTA sub-tile whose window fits in
+shared memory.
 """
 
 from __future__ import annotations
@@ -156,9 +157,12 @@ def library():
                            + [_c_void_p])
             fn.restype = _c_int
         for fn in (lib.b9_strips_f32, lib.b9_strips_f64):
-            fn.argtypes = ([_c_void_p] * 4 + [_c_int] * 8 + [_c_double] * 4
-                           + [_c_void_p])
+            fn.argtypes = ([_c_void_p] * 6 + [_c_int] * 5
+                           + [ctypes.POINTER(_c_int), _c_int]
+                           + [_c_double] * 4 + [_c_void_p])
             fn.restype = _c_int
+        lib.b9_kernel_info.argtypes = [_c_int] * 2 + [ctypes.POINTER(_c_int)]
+        lib.b9_kernel_info.restype = _c_int
         for fn in (lib.b10a_step_f32, lib.b10a_step_f64):
             fn.argtypes = ([_c_void_p] * 2 + [_c_int] * 2 + [_c_double] * 4
                            + [_c_void_p])
@@ -185,12 +189,11 @@ def raise_on(rc, what):
                            + library().ladder_error_string(rc).decode())
 
 
-def window_bytes(cta, h, rk_order, itemsize):
-    """Shared memory of a window kernel's CTA: U, P, FX, FY (and U0 for
-    rk2), each 3 x (CX + 2h) x (CY + 2h) values."""
+def window_bytes(cta, h, itemsize):
+    """Shared memory of a window kernel's CTA: U, P, FX, FY, each 3 x
+    (CX + 2h) x (CY + 2h) values."""
     cx, cy = cta
-    return (5 if rk_order == 2 else 4) * 3 * (cx + 2 * h) * (cy + 2 * h) \
-        * itemsize
+    return 4 * 3 * (cx + 2 * h) * (cy + 2 * h) * itemsize
 
 
 def _stage_cells(cta, h):
@@ -202,14 +205,14 @@ def _stage_cells(cta, h):
                for s in range(1, stages + 1)) / (stages * cx * cy)
 
 
-def cta_tile(h, rk_order, itemsize):
+def cta_tile(h, itemsize):
     """The CTA sub-tile (CX, CY) of a window kernel for halo h: of those
     whose window fits in shared memory, the one with the fewest updates a
     useful cell, halved where two CTAs fit on an SM (a model of the card,
     not a measurement). Raises if none fits (G too large)."""
     best = None
     for cta in CTA_TILES:
-        nbytes = window_bytes(cta, h, rk_order, itemsize)
+        nbytes = window_bytes(cta, h, itemsize)
         if nbytes > SMEM_BYTES:
             continue
         per_sm = min(2, SM_SMEM_BYTES // (nbytes + 1024))

@@ -123,7 +123,7 @@ def step_strips_cuda(u, strips, *, G, cs2, dtdx, dtdy, theta, tile,
     check_tiles(u, TX, TY, h, "iso2d tile kernel")
     check_strips(u, strips, TX, TY, h, "iso2d tile kernel")
     V1.check_kernel_args("iso2d tile kernel", u, *strips)
-    cx, cy = cta or V1.cta_tile(h, 1, u.element_size())
+    cx, cy = cta or V1.cta_tile(h, u.element_size())
     out = torch.empty_like(u)
     with torch.cuda.device(u.device):
         rc = V1.entry("b10_tiles", u.dtype)(

@@ -1,5 +1,5 @@
 """Kernel B9: G periodic iso2d steps (PLM + HLLE or HLLC, rk1 or SSP-RK2)
-of full-width x-stripes in one launch, from caller-built x-halo strips, as
+of full-width x-stripes in one call, from caller-built x-halo strips, as
 a CUDA kernel beside its plain PyTorch version.
 
 The counterpart of mara3_tpu/kernels/iso2d_step_v4.py
@@ -17,15 +17,18 @@ kept, so the tests feed both packages the same inputs:
   state's dtype first, as `_kernel_v4` casts them (:109-113). The
   arithmetic is kernel B1's plain version's (kernels/iso2d_step.py), so
   for periodic strips the two agree bit for bit.
-- `step_v4_strips_cuda(...)`: kernel B9 (csrc/iso2d_ladder.cu): each CTA
-  loads the window of a CX x CY sub-tile of a stripe into shared memory
-  (rows beyond the stripe from lo/hi, columns wrapping in y), runs the G
-  steps there and writes the sub-tile; `step_v4_strips_cuda.launches`
-  counts its launches. `step_v4_strips` takes the plain version for a
-  tensor on the CPU and the kernel for a CUDA tensor, never one for the
-  other.
+- `step_v4_strips_cuda(...)`: kernel B9 (csrc/iso2d_ladder.cu), a C loop
+  of G (rk1) or 2 G (rk2) launches of kernel B1's column march
+  (csrc/iso2d_march.cuh) over every stripe's
+  window [3, TX + 2h, ny]: the first stage reads the stripe's rows and
+  its strips, the middle ones two window buffers [nx / TX, 3, TX + 2h, ny]
+  that the wrapper allocates, the last writes the stripe's rows of the
+  output; `stage_plan` is that sequence, tested on the CPU.
+  `step_v4_strips_cuda.launches` counts its calls. `step_v4_strips` takes
+  the plain version for a tensor on the CPU and the kernel for a CUDA
+  tensor, never one for the other.
 - `step_v4(u, ...)` and `advance_n_v4(u, n, ...)`: the periodic wrappers
-  (strips built before each launch); n is a multiple of G.
+  (strips built before each call); n is a multiple of G.
 
 float32 and float64; bfloat16 raises (ROADMAP A13). The TPU's ny % 128
 rule is not ported; nx % TX == 0 and h <= TX are kept, since the strips
@@ -33,6 +36,8 @@ are built from whole stripes.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -128,24 +133,71 @@ def step_v4_strips_plain(u, lo, hi, *, G: int, cs2: float, dtdx: float,
     return w.permute(1, 0, 2, 3).reshape(3, nx, ny)
 
 
+# the roles of B9's stage plan (csrc/iso2d_ladder.cu B9Role): the stripe
+# and its strips (the launch's input), the window buffers X and Y, the
+# stripe's rows of the output; NONE for no Heun base
+STRIPS, WIN_X, WIN_Y, OUT, NONE = 0, 1, 2, 3, -1
+
+
+def stage_plan(TX: int, G: int, rk_order: int):
+    """B9's march stages over a stripe's window of TX + 2h rows (h = 2 G
+    rk_order): (src, base, dst, r_lo, r_hi) each, the roles above and the
+    output rows [r_lo, r_hi) of the window, which shrink by 2 a side a
+    stage. rk1 alternates X and Y; rk2's first stage writes Y and its
+    second the Heun average 0.5 * (start + E(Y)) into X in place over the
+    step's start (the strips for the first step). The last stage writes
+    rows [h, h + TX), the stripe's rows of the output."""
+    h = 2 * G * rk_order
+    wx = TX + 2 * h
+    rows = lambda k: (2 * (k + 1), wx - 2 * (k + 1))
+    plan = []
+    if rk_order == 1:
+        src = STRIPS
+        for k in range(G):
+            dst = OUT if k == G - 1 else (WIN_X if k % 2 == 0 else WIN_Y)
+            plan.append((src, NONE, dst, *rows(k)))
+            src = dst
+    else:
+        start = STRIPS
+        for g in range(G):
+            plan.append((start, NONE, WIN_Y, *rows(2 * g)))
+            plan.append((WIN_Y, start, OUT if g == G - 1 else WIN_X,
+                         *rows(2 * g + 1)))
+            start = WIN_X
+    return plan
+
+
+def kernel_info(dtype, riemann: str = "hlle"):
+    """B9's march kernel's resources (iso2d_step.march_info)."""
+    lib = V1.library()
+    return TK.march_info(lib.b9_kernel_info, lib.ladder_error_string, dtype,
+                         riemann)
+
+
 def step_v4_strips_cuda(u, lo, hi, *, G: int, cs2: float, dtdx: float,
                         dtdy: float, theta: float = 1.8, TX: int = 512,
-                        rk_order: int = 1, riemann: str = "hlle", cta=None):
+                        rk_order: int = 1, riemann: str = "hlle"):
     """Kernel B9 on contiguous float32 or float64 CUDA tensors: a new [3,
-    nx, ny] with G steps applied (u is not written); cta (CX, CY) overrides
-    the CTA sub-tile. Raises if the kernel does not build or its launch
-    fails."""
+    nx, ny] with G steps applied (u is not written). Raises if the kernel
+    does not build or a launch fails."""
     _check(u, lo, hi, G, TX, rk_order, riemann, "step_v4_strips_cuda")
     V1.check_kernel_args("step_v4_strips_cuda", u, lo, hi)
+    _, nx, ny = u.shape
     h = 2 * G * rk_order
-    cx, cy = cta or V1.cta_tile(h, rk_order, u.element_size())
+    plan = stage_plan(TX, G, rk_order)
+    used = {role for stage in plan for role in stage[:3]}
+    window = (nx // TX, 3, TX + 2 * h, ny)
+    X, Y = (torch.empty(window, dtype=u.dtype, device=u.device)
+            if role in used else None for role in (WIN_X, WIN_Y))
+    table = (ctypes.c_int * (5 * len(plan)))(*(v for s in plan for v in s))
     out = torch.empty_like(u)
     with torch.cuda.device(u.device):
         rc = V1.entry("b9_strips", u.dtype)(
             u.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
-            u.shape[1], u.shape[2], TX, G, rk_order,
-            TK.RIEMANN.index(riemann), cx, cy, cs2, dtdx, dtdy, theta,
-            torch.cuda.current_stream(u.device).cuda_stream)
+            X.data_ptr() if X is not None else None,
+            Y.data_ptr() if Y is not None else None, nx, ny, TX, h,
+            TK.RIEMANN.index(riemann), table, len(plan), cs2, dtdx, dtdy,
+            theta, torch.cuda.current_stream(u.device).cuda_stream)
     V1.raise_on(rc, "iso2d_step_v4")
     step_v4_strips_cuda.launches += 1
     return out

@@ -3,7 +3,7 @@ mara3_tpu/parallel/iso2d_sharded.py.
 
 One process, one controller, as the JAX package's shard_map is: a sharded
 state is a list of x-slabs [3, nx / N, ny], slab k on devices[k]. Per G
-steps each shard runs ONE B9 launch (kernels/iso2d_step_v4.py) on its
+steps each shard makes ONE B9 call (kernels/iso2d_step_v4.py) on its
 stripes, on its device's current stream; the only communication is a
 pair of 2 G rk_order-row edge strips a shard, taken from its x-neighbors
 (periodic) with `tensor.to(neighbor_device, non_blocking=True)`: a peer
@@ -69,7 +69,7 @@ def make_advance_v4_sharded(devices, *, G: int = 8, cs2: float,
                             riemann: str = "hlle"):
     """Distributed n-step advance over a global periodic state x-sharded
     over `devices` (shard_state). Returns ``advance(shards, n)`` -> the new
-    shards, n a multiple of G: per G steps, one B9 launch (or its plain
+    shards, n a multiple of G: per G steps, one B9 call (or its plain
     version, on the CPU) a shard from strips of 2 G rk_order rows."""
     devices = [torch.device(d) for d in devices]
     h = 2 * G * rk_order
