@@ -12,10 +12,12 @@ exits non-zero and prints no result):
    cloud_update.cu (B4), amrsand_step.cu (B6), sand3d_step.cu (B7),
    binary_update.cu (B11a, B11b), binary_advance_strips.cu (B11c) and
    iso2d_ladder.cu (B8, B9, B10a-c), one nvcc each, started together;
-   binary_multi.cu, iso2d_step.cu and iso2d_ladder.cu with -Xptxas=-v,
-   whose registers and spills for each B3 kernel and each column-march
-   kernel (B1's and B9's stage, csrc/iso2d_march.cuh) it prints, with the
-   march kernels' shared memory and CTAs an SM;
+   binary_multi.cu, iso2d_step.cu, iso2d_ladder.cu, amrsand_step.cu and
+   sedov_step.cu with -Xptxas=-v, whose registers and spills for each B3
+   kernel, each column-march kernel (B1's and B9's stage, csrc/
+   iso2d_march.cuh), B6's two kernels and B5's march kernels it prints,
+   with the march kernels' shared memory and CTAs an SM, and B6's and B5's
+   at the main paths' plans (csrc/resident_loop.cuh);
 3. B2 parity: kernel B2 against its plain PyTorch version on the card, at
    depth 3 / block 16 over {conserve_linear_p} x {hlle, hllc} x {plm, pcm}
    and at the main path's shape (depth 6 / block 96), each in float64 at
@@ -70,8 +72,9 @@ exits non-zero and prints no result):
 16. B5 parity: kernel B5 (csrc/sedov_step.cu) against advance_n_plain on
    the card over {euler, srhd (warm and cold)} x {pcm, plm, weno5} x
    {float64, float32}, at 1,000 cells (no TPU rule allows it) for n in
-   {1, 3, 17} and at 524,288 cells for 16 steps; float64 at the CPU bars,
-   float32 at 64 ulps of each cell's largest component;
+   {1, 3, 17} and at 524,288 cells for 16 steps, each case through both
+   designs where the plan allows (the resident march, and the streaming
+   one), every case bit for bit the plain version's;
 17. sedov card against CPU: ``sedov nr=256`` (SRHD pcm), float64, 11
    steps, B5 on the card against its plain version on the CPU;
 18. sedov main path: ``sedov nr=262144`` (524,288 cells) with the defaults
@@ -79,11 +82,12 @@ exits non-zero and prints no result):
    through sedov.setup() and sedov.run() for 4,096 steps; then
    ``newtonian=1`` for 4,096, ``reconstruct_method=plm`` and ``=weno5``
    for 1,024 each, and ``fast_step=0`` (one B5 call a step) for 256, every
-   B5 call counted; prints each run's whole-run rate;
+   B5 call counted; prints each run's whole-run rate and B5's design;
 19. timing at 524,288 cells float32, in turns: B5 and advance_n_plain per
    step and per 128-step call, Euler pcm and SRHD pcm, on the states the
-   main path ended in, beside the bound; then a B5 step's floor (a 128-step
-   call at 1,000 cells) and a time-series row's time at 524,288 cells;
+   main path ended in, beside the bound, and B5's streaming march beside
+   its resident one; then a B5 step's floor (a 128-step call at 1,000
+   cells) and a time-series row's time at 524,288 cells;
 20. B4 parity: kernel B4's four entries (csrc/cloud_update.cu) against
    their plain versions on the card over {pcm, plm} x {B4a, B4b and B4c
    from a warm and a cold pressure, B4d rk1 and rk2} x {float64, float32},
@@ -105,9 +109,9 @@ exits non-zero and prints no result):
    cell; the diagnostics' time at full size;
 24. B6 parity: kernel B6 (csrc/amrsand_step.cu) against advance_n_plain on
    the card at depth 3 / block 8 (every face case) and depth 7 / block 64,
-   n in {1, 3, 17}, from seeded states; float64 at the CPU bars, float32
-   each element within 64 ulps of its cell (and the count of cases that
-   are bit for bit);
+   n in {1, 3, 17}, from seeded states, through both designs (resident
+   and launch-a-step); float64 at the CPU bars, float32 each element
+   within 64 ulps of its cell, and every case bit for bit;
 25. amrsand card against CPU: ``amrsand depth=3 block_size=16
    tfinal=0.25`` in float64, with and without ``regrid=1 rgi=0.05``, B6 on
    the card against the scheme on the CPU, the same meshes at the end;
@@ -116,13 +120,15 @@ exits non-zero and prints no result):
    amrsand.setup() and amrsand.run() to the default tfinal=1.0 (8,192
    steps), with a task runner that copies each diagnostics write's state to
    the host and tests it, writing no files; prints the whole-run rate, B6's
-   calls and launches and the writes' wall time; then ``regrid=1 rgi=0.1
-   tfinal=0.3`` at the same width, with each regrid's blocks and host time,
-   and the time of remap_blocks alone;
+   calls, launches and design, and the writes' wall time; then ``regrid=1
+   rgi=0.1 tfinal=0.3`` at the same width, with each regrid's blocks and
+   host time, and the time of remap_blocks alone;
 27. timing at depth 7 / block 64 float32, in turns: B6 and advance_n_plain
    per step and per 256-step call, the marginal rate between 10 and 110
-   steps (bench_all.py:264's window), beside the bound; and a step per cell
-   at block 128, where the state no longer fits in the L2;
+   steps (bench_all.py:264's window), beside the bound; the launch-a-step
+   design beside the resident one; and a step per cell at block 128, whose
+   state fits in neither the shared memory nor the L2 (the launch-a-step
+   design);
 28. B7 parity: kernel B7 (csrc/sand3d_step.cu) against advance_n_plain at
    depth 3 / block 8 and depth 4 / block 16, n in {1, 3, 17}; float64 at
    the CPU bar (1e-13 of max |u|), float32 as in phase 24;
@@ -433,6 +439,7 @@ B7_OPS_CELL_STEP = 9
 # marginal window of bench_all.py:264; phases 28-30: the repo's 3D product
 # run (BASELINE.md:505-516), 344 blocks of 16^3
 AMR_DEPTH, AMR_BS = 7, 64
+AMR_BLOCKS = 652      # the depth-7 tree's leaves (phase 26 checks them)
 AMR_MARGINAL = (10, 110)
 SAND3D_DEPTH, SAND3D_BS = 4, 16
 AMR_STEPS = (1, 3, 17)
@@ -814,6 +821,83 @@ def ptxas_summary(log):
     return lines
 
 
+def kernel_summary(src, log):
+    """One line per kernel instance of csrc/<src>.cu's nvcc -Xptxas=-v log
+    (B6's step_kernel and resident_kernel, B5's march_kernel<type, method,
+    system, design>): its registers and spills."""
+    lines, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            k = re.search(r"(step_kernel|resident_kernel|march_kernel)I([fd])"
+                          r"(?:Li(\d)E(?:Lb(\d)ELb(\d)E)?)?", m.group(1))
+            name = None
+            if k:
+                parts = ["float32" if k.group(2) == "f" else "float64"]
+                if k.group(3) and not k.group(4):
+                    parts.append(f"{k.group(3)} columns a lane")
+                elif k.group(3):
+                    parts += [("pcm", "plm", "weno5")[int(k.group(3)) - 1],
+                              ("euler", "srhd")[int(k.group(4))],
+                              ("streaming", "resident")[int(k.group(5))]]
+                name = f"{src}.cu {k.group(1)}<{', '.join(parts)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = f"{m.group(1)} B spill stores"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            lines.append(f"{name}: {m.group(1)} registers, {spill}")
+            name = None
+    return lines
+
+
+def resident_phase2(logs, smi):
+    """Phase 2's lines of kernels B6 and B5 (csrc/resident_loop.cuh):
+    ptxas's registers and spills of each kernel, and the occupancy
+    calculator's CTAs an SM at the shared memory of the main paths' plans
+    (amrsand d7b64, sedov 524,288 cells pcm), which must fit; B6's
+    step_kernel and resident_kernel<type, C> (C columns a lane: 1 up to
+    block 32, 2 at 64, 4 at 128), B5's march_kernel<type, method, system,
+    design>."""
+    import torch
+    from mara3_tpu_torch.kernels import amrsand_step as T6
+    from mara3_tpu_torch.kernels import resident_loop as RL
+    from mara3_tpu_torch.kernels import sedov_step as T5
+    for src in ("amrsand_step", "sedov_step"):
+        lines = kernel_summary(src, logs[src])
+        check(len(lines) == (8 if src == "amrsand_step" else 24),
+              f"{src}.cu's report lists {len(lines)} kernels")
+        for line in lines:
+            print(f"ptxas {line}")
+    limits = RL.device_limits(T6._library().b6_device_limits)
+    print(f"card limits: {limits} ({smi})")
+    for dtype in (torch.float32, torch.float64):
+        size = torch.empty((), dtype=dtype).element_size()
+        plan = T6.resident_plan(AMR_BLOCKS, AMR_BS, size, limits)
+        check(plan is not None, f"d{AMR_DEPTH}b{AMR_BS} does not fit")
+        for design, nb in (("resident", plan.nb_max), ("per_step", 0)):
+            info = T6.kernel_info(dtype, design, nb, AMR_BS)
+            check(info["ctas_per_sm"] >= 1, f"B6 {design} fits no CTA")
+            print(f"amrsand_step.cu {design} {str(dtype)[6:]} at "
+                  f"d{AMR_DEPTH}b{AMR_BS} ({plan.ctas} CTAs of {nb} blocks): "
+                  f"{info['registers']} registers, {info['local_bytes']} B "
+                  f"local, {info['dynamic_smem']} B shared, "
+                  f"{info['ctas_per_sm']} CTAs an SM ({smi})")
+        plan = T5.march_plan(2 * SEDOV_NR, "pcm", size, limits)
+        design = "resident" if plan.resident else "streaming"
+        for system in T5.SYSTEMS:
+            info = T5.kernel_info(dtype, "pcm", system, design, plan.lmax)
+            check(info["ctas_per_sm"] >= T5.CTAS_PER_SM[size],
+                  f"B5 {design} {system} fits {info['ctas_per_sm']} CTAs")
+            print(f"sedov_step.cu {design} march {str(dtype)[6:]} {system} "
+                  f"pcm at {2 * SEDOV_NR} cells ({plan.ctas} segments of "
+                  f"<= {plan.lmax}): {info['registers']} registers, "
+                  f"{info['local_bytes']} B local, {info['dynamic_smem']} B "
+                  f"shared, {info['ctas_per_sm']} CTAs an SM ({smi})")
+
+
 class Tee(io.TextIOBase):
     """Writes to the real stdout and keeps a copy."""
 
@@ -1135,6 +1219,7 @@ def drive_sedov(SD, T5, extra, steps, per_step, device):
 
     tee = Tee(sys.stdout)
     T5.advance_n_cuda.launches = 0
+    T5.advance_n_cuda.design = None
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         final = SD.run(cfg, state, tasks=tasks)
@@ -1728,20 +1813,34 @@ def amr_phases(device, smi, profile):
                 scale = float(u.abs().max())
                 bar = B6_F64 if kind == "b6" else dict(
                     rtol=0.0, atol=B7_BAR["float64"] * scale)
+                # B6: each design (the resident one where it fits)
+                designs = [{}]
+                if kind == "b6":
+                    designs = [dict(design=d) for d in T6.DESIGNS
+                               if d != "resident" or T6.plan_for(u)[0]]
                 for n in AMR_STEPS:
-                    got = T.advance_n_cuda(u, tab, n)
-                    torch.cuda.synchronize()
-                    e = amr_bar(got, T.advance_n_plain(u, tab, n), dtype, bar)
-                    worst = (max(worst[0], e[0]), max(worst[1], e[1]))
-                    cases += 1
-                    bits += e[2]
-                    if (depth, bs) == full and dtype == f32:
-                        err = max(err, e[0])
+                    want = T.advance_n_plain(u, tab, n)
+                    for kw in designs:
+                        got = T.advance_n_cuda(u, tab, n, **kw)
+                        torch.cuda.synchronize()
+                        e = amr_bar(got, want, dtype, bar)
+                        worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+                        cases += 1
+                        bits += e[2]
+                        if kind == "b6":
+                            check(e[2], f"B6 {kw['design']} n={n} at depth "
+                                  f"{depth} block {bs} is not the plain "
+                                  f"version's bits")
+                        if (depth, bs) == full and dtype == f32:
+                            err = max(err, e[0])
                 check(torch.equal(u, u_copy), f"{kind} wrote its input")
             print(f"{kind.upper()} parity {str(dtype)[6:]}: {cases} cases "
                   f"pass (depth {small[0]} block {small[1]} with every face "
                   f"case, and depth {full[0]} block {full[1]}; n in "
-                  f"{AMR_STEPS}), {bits} of them bit for bit, max |du| "
+                  f"{AMR_STEPS}"
+                  + ("; the resident and the launch-a-step design"
+                     if kind == "b6" else "")
+                  + f"), {bits} of them bit for bit, max |du| "
                   f"{worst[0]:.3e} ({worst[1]:.2f} float32 ulps of its cell)")
         return err
 
@@ -1818,13 +1917,15 @@ def amr_phases(device, smi, profile):
 
     # ---- phase 26: the amrsand main path -----------------------------------
     argv = ["amrsand", f"depth={AMR_DEPTH}", f"block_size={AMR_BS}"]
+    T6.advance_n_cuda.design = None
     final, log, wall, writes, b6_launches, b7_calls = drive_amr(AS, argv,
                                                                 device)
+    b6_design = T6.advance_n_cuda.design
     s = final.solution
     steps = round(1.0 / AS.time_step(s))
     check(s.iteration == steps, f"amrsand ran {s.iteration} steps, not "
                                 f"{steps}")
-    check(tuple(s.conserved.shape) == (652, AMR_BS, AMR_BS, 1)
+    check(tuple(s.conserved.shape) == (AMR_BLOCKS, AMR_BS, AMR_BS, 1)
           and s.conserved.dtype == f32 and s.conserved.is_cuda,
           f"amrsand state {tuple(s.conserved.shape)} {s.conserved.dtype}")
     check(bool(torch.isfinite(s.conserved).all()), "non-finite amrsand")
@@ -1834,14 +1935,15 @@ def amr_phases(device, smi, profile):
           f"diagnostics at {[it for it, _ in writes]}, not [0, {steps}]")
     cells = s.conserved.numel()
     print(f"amrsand main path depth={AMR_DEPTH} block_size={AMR_BS} float32: "
-          f"{s.iteration} steps in {b6_launches} B6 calls (chunks of "
-          f"{max(chunks)}; {s.iteration} kernel launches), {wall:.4f} s "
+          f"{s.iteration} steps in {b6_launches} B6 calls (the {b6_design} "
+          f"design; chunks of {max(chunks)}), {wall:.4f} s "
           f"wall, the {len(writes)} diagnostics writes (a host copy and the "
           f"finiteness test) {sum(w for _, w in writes):.4f} s of it; "
           f"whole-run {s.iteration * cells / wall:.6e} zone-updates/s on "
           f"{smi}")
     s_main, u_main = s, s.conserved
     argv_rg = argv + ["regrid=1", "rgi=0.1", "tfinal=0.3"]
+    T6.advance_n_cuda.design = None
     final, log, wall, writes, calls, _ = drive_amr(AS, argv_rg, device,
                                                    quiet=True)
     s = final.solution
@@ -1851,8 +1953,9 @@ def amr_phases(device, smi, profile):
     check(len(regrids) >= 2, f"{len(regrids)} regrids")
     check_amr_chunks(log, "cuda_b6", s.iteration, calls)
     print(f"amrsand depth={AMR_DEPTH} block_size={AMR_BS} regrid=1 rgi=0.1 "
-          f"tfinal=0.3 float32: {s.iteration} steps in {calls} B6 calls, "
-          f"{wall:.4f} s wall; regrids (blocks, depth, host ms): "
+          f"tfinal=0.3 float32: {s.iteration} steps in {calls} B6 calls "
+          f"(the {T6.advance_n_cuda.design} design), {wall:.4f} s wall; "
+          f"regrids (blocks, depth, host ms): "
           + ", ".join(f"({b}, {d}, {ms})" for b, d, _, ms in regrids)
           + f"; {len(s.leaves)} blocks at the end, on {smi}")
     # the remap alone (get_cell_block per new leaf), at the first regrid
@@ -1873,18 +1976,28 @@ def amr_phases(device, smi, profile):
     nt = BL.build_neighbor_table(s.leaves)
     tab = T6.guard_tables(nt, AS.block_spacings(s), AS.time_step(s))
     b6_ms, b6_plain_ms, b6_bnd = timing("b6", u_main, tab, 256, 1)
-    # past the L2: depth 7 with blocks of 128 (42.7 MB and its copy)
+    check(T6.plan_for(u_main)[0] is not None, "B6 at d7b64 is not resident")
+    # the launch-a-step design on the same state, in turns with the resident
+    per_step = lambda: T6.advance_n_cuda(u_main, tab, 256, design="per_step")
+    resident = lambda: T6.advance_n_cuda(u_main, tab, 256)
+    turns = [time_ms(f, 5) for f in (per_step, resident, resident, per_step)]
+    print(f"B6 256-step call at d{AMR_DEPTH}b{AMR_BS} float32: resident "
+          f"{min(turns[1:3]):.4f} ms, launch-a-step {min(turns[::3]):.4f} ms "
+          f"(turns " + " ".join(f"{t:.4f}" for t in turns) + f"), on {smi}")
+    # past the L2 and the shared memory: depth 7 with blocks of 128 (42.7
+    # MB and its copy), the launch-a-step design
     big, big_tab = seeded_amr(AS, S3, BL, T6, T7, "b6", AMR_DEPTH, 128, f32,
                               device)
+    check(T6.plan_for(big)[0] is None, "B6 at d7b128 fits")
     big_ms = time_ms(lambda: T6.advance_n_cuda(big, big_tab, 64), 5) / 64
     rates = [8 * c / (ms * 1e-3) / 1e12 for c, ms in
              ((u_main.numel(), b6_ms / 256), (big.numel(), big_ms))]
     print(f"B6 a step: {b6_ms / 256 * 1e9 / u_main.numel():.4f} ps a cell "
-          f"({rates[0]:.3f} TB/s read and written) at block {AMR_BS} "
-          f"({u_main.numel() * 4 / 1e6:.1f} MB, in the L2 with its copy), "
+          f"(as {rates[0]:.3f} TB/s read and written) at block {AMR_BS} "
+          f"({u_main.numel() * 4 / 1e6:.1f} MB, resident in shared memory), "
           f"{big_ms * 1e9 / big.numel():.4f} ps a cell ({rates[1]:.3f} TB/s)"
-          f" at block 128 ({big.numel() * 4 / 1e6:.1f} MB), 64-step calls, "
-          f"on {smi}")
+          f" at block 128 ({big.numel() * 4 / 1e6:.1f} MB, launch a step), "
+          f"64-step calls, on {smi}")
     del big, big_tab
     if profile:
         profiled(f"amrsand chunk of 256 steps at depth {AMR_DEPTH} block "
@@ -2845,7 +2958,8 @@ def main(argv=None) -> int:
                "binary_update", "binary_advance_strips", "iso2d_ladder")
     t0 = time.perf_counter()
     # the -Xptxas=-v reports of these, kept beside their libraries
-    reported = ("binary_multi", "iso2d_step", "iso2d_ladder")
+    reported = ("binary_multi", "iso2d_step", "iso2d_ladder", "amrsand_step",
+                "sedov_step")
     with contextlib.redirect_stdout(io.StringIO()), \
             ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(lambda s: _build.build(s, verbose=s in reported),
@@ -2877,6 +2991,7 @@ def main(argv=None) -> int:
                       f"{info['local_bytes']} B local, {info['static_smem']} "
                       f"B shared, {info['ctas_per_sm']} CTAs an SM "
                       f"({smi})")
+    resident_phase2(logs, smi)
 
     # ---- phase 3: B2 against its plain version -----------------------------
     for dtype in (torch.float64, torch.float32):
@@ -3297,7 +3412,7 @@ def main(argv=None) -> int:
                for rec in ("pcm", "plm", "weno5")
                for warm in ((True,) if system == "euler" else (True, False))]
     for dtype in (torch.float64, torch.float32):
-        worst, cases = (0.0, 0.0), 0
+        worst, cases, bits, runs = (0.0, 0.0), 0, 0, {}
         for system in ("euler", "srhd"):
             odd = seeded_sedov(SD, SEDOV_ODD_NR, system, dtype, device)
             big = seeded_sedov(SD, SEDOV_NR, system, dtype, device, seed=1)
@@ -3307,21 +3422,31 @@ def main(argv=None) -> int:
                 kw = dict(reconstruct=rec, system=system, warm=warm)
                 for (u, v, dt), n in ([(odd, k) for k in B5_ODD_STEPS]
                                       + [(big, 16)]):
-                    got = T5.advance_n_cuda(u, v, dt, n, **kw)
-                    torch.cuda.synchronize()
-                    e = b5_bar(got, T5.advance_n_plain(u, v, dt, n, **kw),
-                               dtype, system)
-                    worst = tuple(map(max, worst, e))
+                    want = T5.advance_n_plain(u, v, dt, n, **kw)
+                    plan, _ = T5.plan_for(u, rec)
                     cases += 1
-                    if u is big[0] and (system, rec, warm) == ("srhd", "pcm",
-                                                               True):
-                        b5_err = e[0]
+                    for design in T5.DESIGNS[not plan.resident:]:
+                        got = T5.advance_n_cuda(u, v, dt, n, design=design,
+                                                **kw)
+                        torch.cuda.synchronize()
+                        e = b5_bar(got, want, dtype, system)
+                        check(torch.equal(got, want), f"B5 {design} {system} "
+                              f"{rec} n={n} at {u.shape[0]} cells is not "
+                              f"the plain version's bits")
+                        worst = tuple(map(max, worst, e))
+                        bits += 1
+                        runs[design] = runs.get(design, 0) + 1
+                        if u is big[0] and (system, rec, warm, design) == (
+                                "srhd", "pcm", True, "resident"):
+                            b5_err = e[0]
             del odd, big
         print(f"B5 parity {str(dtype)[6:]}: {cases} cases pass ({{euler, "
               f"srhd (warm, cold)}} x {{pcm, plm, weno5}} at "
               f"{2 * SEDOV_ODD_NR} cells, n in {B5_ODD_STEPS}, and "
-              f"{2 * SEDOV_NR} cells 16 steps), max |du| {worst[0]:.3e} "
-              f"({worst[1]:.2f} ulps of its cell)")
+              f"{2 * SEDOV_NR} cells 16 steps) in {bits} runs ("
+              + ", ".join(f"{d} {k}" for d, k in runs.items())
+              + f"), every run bit for bit the plain version's; max |du| "
+              f"{worst[0]:.3e}")
     del got
 
     # ---- phase 17: sedov, card against CPU ---------------------------------
@@ -3358,7 +3483,8 @@ def main(argv=None) -> int:
         rate = final.solution.iteration * 2 * SEDOV_NR / wall
         print(f"sedov main path {' '.join(extra) or 'defaults'} ({label}, "
               f"float32): {final.solution.iteration} steps in {calls} B5 "
-              f"calls, {wall:.4f} s wall, {len(rows)} time-series rows, "
+              f"calls (the {T5.advance_n_cuda.design} march), {wall:.4f} s "
+              f"wall, {len(rows)} time-series rows, "
               f"shock radius {radii[0]:.6f} -> {radii[-1]:.6f}; whole-run "
               f"{rate:.6e} zone-updates/s on {smi}")
     del final
@@ -3378,6 +3504,9 @@ def main(argv=None) -> int:
         call_ms, call_plain_ms, runs128 = in_turns(
             lambda: T5.advance_n_plain(u, v, dt, 128, **kw),
             lambda: T5.advance_n_cuda(u, v, dt, 128, **kw), 1, 10)
+        check(T5.plan_for(u, "pcm")[0].resident, "B5 is not resident")
+        stream_ms = min(time_ms(lambda: T5.advance_n_cuda(
+            u, v, dt, 128, design="streaming", **kw), 10) for _ in range(2))
         bnd = b5_bound(u, v, 128, system, newton)
         step_bnd = b5_bound(u, v, 1, system, cold)
         b5_time[system] = (call_ms, call_plain_ms, bnd)
@@ -3385,7 +3514,8 @@ def main(argv=None) -> int:
               f"{step_ms:.4f} ms a step (one-step call) vs plain "
               f"{step_plain_ms:.4f} ms (runs " + " ".join(
                   f"{r:.4f}" for r in runs1) + f"); 128-step call "
-              f"{call_ms:.4f} ms ({call_ms / 128:.5f} ms a step) vs plain "
+              f"{call_ms:.4f} ms ({call_ms / 128:.5f} ms a step; the "
+              f"streaming march {stream_ms:.4f} ms) vs plain "
               f"{call_plain_ms:.4f} ms (runs " + " ".join(
                   f"{r:.4f}" for r in runs128) + f"); Newton updates a cell "
               f"{cold:.4f} in a cold step, {newton:.4f} a step over 128 "

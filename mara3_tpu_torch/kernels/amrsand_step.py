@@ -27,17 +27,27 @@ does not.
 
 - `guard_tables` packs a tree's lo-face neighbor ids and cases and the
   per-block c, on the state's device: the only tables either version reads;
+- `edge_rows` and `guards_from_edges` are the exchange between blocks: the
+  hi-side edge and next-inner rows of every block, in x and in y, and the
+  lo-side guards read from them. The plain version steps through them, and
+  the resident kernel hands the same rows between its CTAs;
+- `resident_plan` is the resident kernel's ownership of the blocks, a pure
+  function of the sizes and the card's limits, or None where the mesh does
+  not fit in the co-resident CTAs' shared memory;
 - `advance_n_plain` is the plain PyTorch version;
-- `advance_n_cuda` is the kernel's wrapper (csrc/amrsand_step.cu: one
-  thread a cell, one launch a step, all n issued by one C call on the
-  current stream); `advance_n_cuda.launches` counts its calls that launch;
+- `advance_n_cuda` is the kernel's wrapper (csrc/amrsand_step.cu): the
+  resident design (one cooperative launch a call, the mesh in shared
+  memory for all n steps) where `resident_plan` fits, else the
+  launch-a-step design; `advance_n_cuda.design` names the design of its
+  last call and `advance_n_cuda.launches` counts its calls that launch;
 - `advance_n` takes the plain version for a tensor on the CPU and the
   kernel for a CUDA tensor; it never falls back from one to the other.
 
 Not ported, being TPU mechanisms: the one-hot [Bp, Bp] block-selection
 matmuls and [bs, bs] column transforms, the padding of the block count to
-8, the lane rolls and the VMEM residency. bs must be even (the coarse case
-selects a half of the neighbor's edge).
+8, the lane rolls and the VMEM limit. Keeping the mesh on the chip for a
+call is this card's own design, sized by its shared memory. bs must be
+even (the coarse case selects a half of the neighbor's edge).
 """
 
 from __future__ import annotations
@@ -49,7 +59,9 @@ import numpy as np
 import torch
 
 from mara3_tpu_torch.core.ops import scalar_div
+from mara3_tpu_torch.kernels import resident_loop
 
+DESIGNS = ("resident", "per_step")
 LO_FACES = (0, 2)     # x-lo and y-lo in the NeighborTable's face numbering
 
 
@@ -121,13 +133,27 @@ def _lo_guard(edge, inner, face):
                        torch.where(case == 1, g_coarse, g_fine))
 
 
-def _step(u, faces, c):
-    """One step of u [B, bs, bs]."""
+def edge_rows(u):
+    """[B, 4, bs]: every block's hi-side rows that its neighbors' guards
+    read, from u [B, bs, bs]: the x edge (row bs - 1), the x inner row
+    (bs - 2), the y edge (column bs - 1) and the y inner column (bs - 2)."""
     bs = u.shape[1]
-    gx = _lo_guard(u[:, bs - 1, :], u[:, bs - 2, :], faces[:, 0])
-    gy = _lo_guard(u[:, :, bs - 1], u[:, :, bs - 2], faces[:, 1])
-    u_xm1 = torch.cat([gx[:, None, :], u[:, :-1, :]], dim=1)
-    u_ym1 = torch.cat([gy[:, :, None], u[:, :, :-1]], dim=2)
+    return torch.stack([u[:, bs - 1, :], u[:, bs - 2, :], u[:, :, bs - 1],
+                        u[:, :, bs - 2]], dim=1)
+
+
+def guards_from_edges(edges, faces):
+    """[B, 2, bs]: the x-lo and y-lo guard rows of every block, from the
+    edge rows [B, 4, bs] of every block and the face table [B, 2, 6]."""
+    return torch.stack([_lo_guard(edges[:, 2 * a], edges[:, 2 * a + 1],
+                                  faces[:, a]) for a in (0, 1)], dim=1)
+
+
+def _step(u, faces, c):
+    """One step of u [B, bs, bs], its guards through the edge rows."""
+    g = guards_from_edges(edge_rows(u), faces)
+    u_xm1 = torch.cat([g[:, 0, None, :], u[:, :-1, :]], dim=1)
+    u_ym1 = torch.cat([g[:, 1, :, None], u[:, :, :-1]], dim=2)
     return u - c[:, None, None] * (2.0 * u - u_xm1 - u_ym1)
 
 
@@ -145,6 +171,42 @@ def advance_n_plain(u, tables: GuardTables, n: int):
 # the CUDA kernel
 # -----------------------------------------------------------------------------
 
+@dataclass(frozen=True)
+class ResidentPlan:
+    """The resident kernel's ownership: CTA g holds blocks starts[g] ..
+    starts[g + 1] (a contiguous run in the tree's Hilbert order, the state's
+    order), at most nb_max of them, in smem bytes of shared memory."""
+    starts: np.ndarray
+    nb_max: int
+    smem: int
+
+    @property
+    def ctas(self) -> int:
+        return len(self.starts) - 1
+
+
+def resident_smem(nb_max: int, bs: int, itemsize: int) -> int:
+    """csrc/amrsand_step.cu resident_smem: nb_max blocks, their guards
+    [2, bs] and courant factors in the state's type, their face tables."""
+    return nb_max * (bs * bs + 2 * bs + 1) * itemsize + nb_max * 2 * 6 * 4
+
+
+def resident_plan(B: int, bs: int, itemsize: int,
+                  limits: resident_loop.Limits):
+    """One CTA an SM (or one a block, for fewer blocks than SMs), the
+    blocks split into runs whose lengths differ by at most one; None where
+    bs is not a power of two or a CTA's blocks do not fit in the shared
+    memory one CTA an SM can have."""
+    if bs < 2 or bs & (bs - 1):
+        return None
+    ctas = min(B, limits.sms)
+    nb_max = -(-B // ctas)
+    smem = resident_smem(nb_max, bs, itemsize)
+    if not limits.fits(smem, 1):
+        return None
+    return ResidentPlan(resident_loop.split_starts(B, ctas), nb_max, smem)
+
+
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
 
@@ -157,17 +219,59 @@ def _library():
         for fn in (lib.b6_advance_n_f32, lib.b6_advance_n_f64):
             fn.argtypes = [_c_void_p] * 5 + [_c_int] * 3 + [_c_void_p]
             fn.restype = _c_int
+        for fn in (lib.b6_resident_f32, lib.b6_resident_f64):
+            fn.argtypes = [_c_void_p] * 6 + [_c_int] * 5 + [_c_void_p]
+            fn.restype = _c_int
+        lib.b6_device_limits.argtypes = [ctypes.POINTER(_c_int)]
+        lib.b6_device_limits.restype = _c_int
+        lib.b6_kernel_info.argtypes = [_c_int] * 3 + [ctypes.POINTER(_c_int)]
+        lib.b6_kernel_info.restype = _c_int
         lib.b6_error_string.argtypes = [_c_int]
         lib.b6_error_string.restype = ctypes.c_char_p
         lib._mara_typed = True
     return lib
 
 
-def advance_n_cuda(u, tables: GuardTables, n: int):
+_plans: dict = {}
+
+
+def plan_for(u):
+    """resident_plan for the CUDA tensor u [B, bs, bs, 1] on its card, and
+    the plan's starts on the card (None, None where it does not fit); made
+    once for each size, type and card."""
+    key = (u.shape[0], u.shape[1], u.dtype, u.device)
+    if key not in _plans:
+        lib = _library()
+        with torch.cuda.device(u.device):
+            limits = resident_loop.device_limits(lib.b6_device_limits)
+        plan = resident_plan(u.shape[0], u.shape[1], u.element_size(),
+                             limits)
+        starts = None if plan is None else torch.as_tensor(
+            plan.starts, device=u.device)
+        _plans[key] = (plan, starts)
+    return _plans[key]
+
+
+def kernel_info(dtype, design: str, nb_max: int = 0, bs: int = 0):
+    """The resources of B6's kernel of `design` on the current card
+    (resident_loop.kernel_info); the resident kernel's at nb_max blocks of
+    bs a CTA."""
+    if design not in DESIGNS:
+        raise ValueError(f"B6 has designs {DESIGNS}, not {design!r}")
+    lib = _library()
+    nb = nb_max if design == "resident" else 0
+    return resident_loop.kernel_info(lib.b6_kernel_info, lib.b6_error_string,
+                                     int(dtype == torch.float64), nb, bs)
+
+
+def advance_n_cuda(u, tables: GuardTables, n: int, design=None):
     """Kernel B6 on a contiguous float32 or float64 CUDA tensor u
     [B, bs, bs, 1] with its tables on the same card: a new tensor with n
-    steps applied (u is not written). Raises if the kernel does not build or
-    a launch fails."""
+    steps applied (u is not written). design None takes the resident
+    design where resident_plan fits and the launch-a-step design where it
+    does not; "resident" or "per_step" asks for one (a resident design that
+    does not fit raises). Raises if the kernel does not build or a launch
+    is refused or fails."""
     _check_args(u, tables, n)
     if u.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"advance_n_cuda takes float32 or float64, not "
@@ -181,25 +285,43 @@ def advance_n_cuda(u, tables: GuardTables, n: int):
     if u.numel() >= 2 ** 31:
         raise ValueError(f"advance_n_cuda indexes cells with 32-bit ints; "
                          f"{u.numel()} cells are too many")
+    if design not in (None, *DESIGNS):
+        raise ValueError(f"B6 has designs {DESIGNS}, not {design!r}")
     if n == 0:
         return u.clone()
     lib = _library()
+    plan, starts = plan_for(u)
+    if design is None:
+        design = "per_step" if plan is None else "resident"
+    if design == "resident" and plan is None:
+        raise ValueError(f"{u.shape[0]} blocks of {u.shape[1]}^2 "
+                         f"{u.dtype} do not fit in the card's shared memory")
+    B, bs = u.shape[0], u.shape[1]
     out = torch.empty_like(u)
-    scratch = torch.empty_like(u)
-    fn = lib.b6_advance_n_f32 if u.dtype == torch.float32 \
-        else lib.b6_advance_n_f64
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    rc = fn(u.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            tables.faces.data_ptr(), tables.c.data_ptr(), u.shape[0],
-            u.shape[1], n, stream)
+    f64 = u.dtype == torch.float64
+    if design == "resident":
+        edges = torch.empty((2, B, 4, bs), dtype=u.dtype, device=u.device)
+        fn = lib.b6_resident_f64 if f64 else lib.b6_resident_f32
+        rc = fn(u.data_ptr(), out.data_ptr(), tables.faces.data_ptr(),
+                tables.c.data_ptr(), starts.data_ptr(), edges.data_ptr(),
+                plan.ctas, B, bs, plan.nb_max, n, stream)
+    else:
+        scratch = torch.empty_like(u)
+        fn = lib.b6_advance_n_f64 if f64 else lib.b6_advance_n_f32
+        rc = fn(u.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                tables.faces.data_ptr(), tables.c.data_ptr(), B, bs, n,
+                stream)
     if rc != 0:
-        raise RuntimeError("amrsand_step kernel launch failed: "
+        raise RuntimeError(f"amrsand_step {design} kernel launch failed: "
                            + lib.b6_error_string(rc).decode())
     advance_n_cuda.launches += 1
+    advance_n_cuda.design = design
     return out
 
 
 advance_n_cuda.launches = 0
+advance_n_cuda.design = None
 
 
 def advance_n(u, tables: GuardTables, n: int):

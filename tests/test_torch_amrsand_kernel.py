@@ -157,3 +157,66 @@ def test_amrsand_card_matches_the_cpu(cuda_device):
     assert TA.LAST_PATH == "cuda_b6[11]"
     want = TA.advance_n(u, dxb, nt, dt, 11)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **F64_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,bs", [(3, 8), (4, 16), (3, 6), (7, 64)],
+                         ids=["d3b8", "d4b16", "d3b6", "d7b64"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_each_design_matches_plain_bit_for_bit(cuda_device, dtype, depth,
+                                               bs):
+    """The resident design (where its plan fits: bs a power of two) and
+    the launch-a-step design, n in {1, 3, 17}, each bit for bit the plain
+    version's; the design None picks is the plan's, and two calls give
+    the same bits."""
+    u, tab = seeded(depth, bs, seed=depth + bs, dtype=dtype,
+                    device=cuda_device)
+    plan, _ = T6.plan_for(u)
+    assert (plan is not None) == (bs & (bs - 1) == 0)
+    designs = ["per_step"] + (["resident"] if plan is not None else [])
+    for n in (1, 3, 17):
+        want = T6.advance_n_plain(u, tab, n)
+        for design in designs:
+            got = T6.advance_n_cuda(u, tab, n, design=design)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (design, n)
+        T6.advance_n_cuda(u, tab, n)
+        assert T6.advance_n_cuda.design == designs[-1]
+        again = T6.advance_n_cuda(u, tab, n)
+        assert torch.equal(again, want)
+    if plan is None:
+        with pytest.raises(ValueError, match="do not fit"):
+            T6.advance_n_cuda(u, tab, 1, design="resident")
+
+
+@pytest.mark.cuda
+def test_large_blocks_take_the_launch_a_step_design(cuda_device):
+    """Depth 7 with blocks of 128 (652 blocks, 42.7 MB in float32) does not
+    fit in the card's shared memory; its 3 steps through the launch-a-step
+    design are the plain version's bits."""
+    u, tab = seeded(7, 128, seed=7, dtype=torch.float32, device=cuda_device)
+    plan, _ = T6.plan_for(u)
+    assert plan is None
+    got = T6.advance_n_cuda(u, tab, 3)
+    assert T6.advance_n_cuda.design == "per_step"
+    assert torch.equal(got, T6.advance_n_plain(u, tab, 3))
+    with pytest.raises(ValueError, match="do not fit"):
+        T6.advance_n_cuda(u, tab, 1, design="resident")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_kernels_fit_and_are_co_resident(cuda_device, dtype):
+    """At depth 7, block 64 the resident kernel's plan fits, and the
+    occupancy calculator puts a CTA on every SM at the plan's shared
+    memory; the launch-a-step kernel fits too."""
+    u, _ = seeded(7, 64, dtype=dtype, device=cuda_device)
+    plan, _ = T6.plan_for(u)
+    assert plan is not None and plan.ctas == min(
+        u.shape[0], torch.cuda.get_device_properties(0).multi_processor_count)
+    info = T6.kernel_info(dtype, "resident", plan.nb_max, 64)
+    assert info["dynamic_smem"] == plan.smem
+    assert info["ctas_per_sm"] >= 1
+    assert T6.kernel_info(dtype, "per_step")["ctas_per_sm"] >= 1

@@ -262,3 +262,59 @@ def test_kernel_matches_plain_on_the_cpu(cuda_device):
     want = T5.advance_n(u, v, dt, 11, **kw)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                **F64_TOL["srhd"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reconstruct", ["pcm", "plm", "weno5"])
+@pytest.mark.parametrize("system", ["euler", "srhd"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_each_design_matches_plain_bit_for_bit(cuda_device, dtype, system,
+                                               reconstruct):
+    """The resident and the streaming march at 7 cells (two segments),
+    100 cells and 1,001 cells (odd, 264 segments or fewer), n in {1, 3,
+    17}, SRHD warm and cold: each bit for bit the plain version's, and two
+    calls give the same bits."""
+    for nr in (7, 100, 1001):
+        u, v, dt = seeded_sedov(501, system, dtype=dtype,
+                                device=cuda_device, flat_edge=False)
+        u, v = u[:nr].contiguous(), v[:nr + 1].contiguous()
+        plan, _ = T5.plan_for(u, reconstruct)
+        assert plan.resident
+        for warm in ((True,) if system == "euler" else (True, False)):
+            kw = dict(reconstruct=reconstruct, system=system, warm=warm)
+            for n in (1, 3, 17):
+                want = T5.advance_n_plain(u, v, dt, n, **kw)
+                for design in T5.DESIGNS:
+                    got = T5.advance_n_cuda(u, v, dt, n, design=design, **kw)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), (nr, warm, n, design)
+                again = T5.advance_n_cuda(u, v, dt, n, **kw)
+                assert T5.advance_n_cuda.design == "resident"
+                assert torch.equal(again, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_kernels_fit_and_are_co_resident(cuda_device, dtype):
+    """At 524,288 cells the plan is resident in float32 and streaming in
+    float64; every march kernel at the plan's segments fits the plan's
+    CTAs an SM (CTAS_PER_SM of the dtype)."""
+    nr = 524288
+    u_size = lambda dt: torch.empty((), dtype=dt).element_size()
+    plan, _ = T5.plan_for(torch.empty((nr, 5), dtype=dtype,
+                                      device=cuda_device), "pcm")
+    assert plan.resident == (dtype == torch.float32)
+    per_sm = T5.CTAS_PER_SM[u_size(dtype)]
+    assert plan.ctas == per_sm * torch.cuda.get_device_properties(
+        0).multi_processor_count
+    for system in T5.SYSTEMS:
+        for rec in T5.METHODS:
+            for design in T5.DESIGNS:
+                if design == "resident" and not plan.resident:
+                    continue
+                info = T5.kernel_info(dtype, rec, system, design, plan.lmax)
+                assert info["ctas_per_sm"] >= per_sm, (system, rec)
+                assert info["dynamic_smem"] == T5.march_smem(
+                    rec, design == "resident", plan.lmax, u_size(dtype))
