@@ -4,6 +4,10 @@ Re-design of the reference's app shell (src/app_subprogram.hpp:40-46,
 src/app_main.cpp:53-95): each workload registers a named subprogram; the CLI
 dispatches on argv[1], times the whole run, and prints the total execution
 time. Usage: ``python -m mara3_tpu_torch <subprogram> [key=val ...]``.
+
+With MARA3_PROFILE_DIR set, the run goes under torch.profiler and leaves
+``<dir>/<subprogram>.trace.json`` and ``<dir>/<subprogram>.spans.json``
+(app/tracing.py).
 """
 
 from __future__ import annotations
@@ -50,12 +54,20 @@ def main(argv=None) -> int:
             print(f"    {name}")
         return 0
 
+    from mara3_tpu_torch.app import tracing
     from mara3_tpu_torch.app.device import DEVICE_SELECTOR
     from mara3_tpu_torch.app.performance import time_execution
     # the one place the command line's device selector is read: "cpu" asks
     # for the plain PyTorch versions on the CPU; unset, the run needs a GPU
     device = os.environ.get(DEVICE_SELECTOR) or None
-    result, perf = time_execution(_REGISTRY[argv[1]], argv[1:],
-                                  device=device)
+    profile_dir = os.environ.get(tracing.PROFILE_DIR)
+    if profile_dir:
+        result, perf = tracing.profile_to(profile_dir, argv[1],
+                                          time_execution,
+                                          _REGISTRY[argv[1]], argv[1:],
+                                          device=device)
+    else:
+        result, perf = time_execution(_REGISTRY[argv[1]], argv[1:],
+                                      device=device)
     print(f"total execution time: {perf.execution_time_ms / 1e3:.8f}s")
     return int(result or 0)

@@ -40,7 +40,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from mara3_tpu_torch.app import driver, serialize
+from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
 from mara3_tpu_torch.app.device import resolve_device
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
@@ -155,15 +155,18 @@ def kernel_tables(nt, dxb, dt: float) -> amrsand_step.GuardTables:
     """B6's tables for the tree `nt`, spacings dxb and step dt, built once
     per tree: the cache is keyed by the tree's content (never by id(nt), a
     freed table's id can come back with another tree) and holds one tree."""
-    digest = hashlib.sha1(b"".join(
-        np.ascontiguousarray(a).tobytes()
-        for a in (nt.case, nt.same_id, nt.coarse_id, nt.coarse_half,
-                  nt.fine_id))).hexdigest()
-    key = (digest, str(dxb.dtype), str(dxb.device), float(dt))
-    if key not in _TABLES_CACHE:
-        _TABLES_CACHE.clear()
-        _TABLES_CACHE[key] = amrsand_step.guard_tables(nt, dxb, dt)
-    return _TABLES_CACHE[key]
+    rec = tracing.recorder()
+    with rec.span("mara3.tables"):
+        digest = hashlib.sha1(b"".join(
+            np.ascontiguousarray(a).tobytes()
+            for a in (nt.case, nt.same_id, nt.coarse_id, nt.coarse_half,
+                      nt.fine_id))).hexdigest()
+        key = (digest, str(dxb.dtype), str(dxb.device), float(dt))
+        if key not in _TABLES_CACHE:
+            rec.count("table_builds")
+            _TABLES_CACHE.clear()
+            _TABLES_CACHE[key] = amrsand_step.guard_tables(nt, dxb, dt)
+        return _TABLES_CACHE[key]
 
 
 def advance_n(u0, dxb, nt, dt: float, num_steps: int, kernel=None):
@@ -290,7 +293,9 @@ def setup(argv, *, device=None, dtype=None):
 def _run_fast(cfg, state: State, tasks) -> State:
     """The chunked loop: each chunk (256, 64, 16, 4 or 1 steps) is one
     advance_n call, planned to land on the next diagnostics due, regrid or
-    tfinal (the JAX package's planner, eps and all)."""
+    tfinal (the JAX package's planner, eps and all). Under a profiler the
+    loop records the spans and counters of app/tracing.py."""
+    rec = tracing.recorder()
     s, schedule = state.solution, state.schedule
     nt = block_layout.build_neighbor_table(s.leaves)
     dxb = block_spacings(s)
@@ -301,32 +306,51 @@ def _run_fast(cfg, state: State, tasks) -> State:
     tfinal = cfg.get_double("tfinal")
     dfi = cfg.get_double("dfi")
     while s.time < tfinal - eps:
-        state = tasks(State(s, schedule), cfg)
-        s, schedule = state.solution, state.schedule
-        if adaptive and s.time >= next_regrid:
-            s, nt, dxb = apply_regrid(s, cfg)
-            next_regrid += rgi
-        dt = time_step(s)
-        n_cap = max(1, int(math.ceil((tfinal - s.time) / dt - eps)))
-        nxt = schedule.last_performed("write_diagnostics") + dfi
-        if nxt > s.time + eps:
-            n_cap = min(n_cap, max(1, int(math.ceil(
-                (nxt - s.time) / dt - eps))))
-        if adaptive and next_regrid > s.time + eps:
-            n_cap = min(n_cap, max(1, int(math.ceil(
-                (next_regrid - s.time) / dt - eps))))
-        n = next(c for c in CHUNKS if c <= n_cap)
-        t0 = _time.perf_counter()
-        u1 = advance_n(s.conserved, dxb, nt, dt, n)
-        if u1.is_cuda:
-            torch.cuda.synchronize(u1.device)
-        ms = (_time.perf_counter() - t0) * 1e3
-        s = replace(s, iteration=s.iteration + n, time=s.time + n * dt,
-                    conserved=u1)
-        schedule = mark_tasks(schedule, s.time, [("write_diagnostics", dfi)])
-        num_zones = u1.shape[0] * u1.shape[1] * u1.shape[2]
-        print(f"[{s.iteration:04d}] t={s.time:3.7f} "
-              f"kzps={n * num_zones / max(ms, 1e-9):3.2f} [{LAST_PATH}]")
+        with rec.span("mara3.chunk", iteration=s.iteration):
+            if schedule.is_due("write_diagnostics"):
+                rec.count("outputs.write_diagnostics")
+                with rec.span("mara3.output", task="write_diagnostics"):
+                    state = tasks(State(s, schedule), cfg)
+            else:
+                state = tasks(State(s, schedule), cfg)
+            s, schedule = state.solution, state.schedule
+            if adaptive and s.time >= next_regrid:
+                rec.count("regrids")
+                with rec.span("mara3.regrid"):
+                    leaves = s.leaves
+                    s, nt, dxb = apply_regrid(s, cfg)
+                if s.leaves != leaves:
+                    rec.count("tree_changes")
+                next_regrid += rgi
+            with rec.span("mara3.plan"):
+                dt = time_step(s)
+                n_cap = max(1, int(math.ceil((tfinal - s.time) / dt - eps)))
+                nxt = schedule.last_performed("write_diagnostics") + dfi
+                if nxt > s.time + eps:
+                    n_cap = min(n_cap, max(1, int(math.ceil(
+                        (nxt - s.time) / dt - eps))))
+                if adaptive and next_regrid > s.time + eps:
+                    n_cap = min(n_cap, max(1, int(math.ceil(
+                        (next_regrid - s.time) / dt - eps))))
+                n = next(c for c in CHUNKS if c <= n_cap)
+            t0 = _time.perf_counter()
+            with rec.span("mara3.launch"):
+                u1 = advance_n(s.conserved, dxb, nt, dt, n)
+            with rec.span("mara3.wait"):
+                if u1.is_cuda:
+                    torch.cuda.synchronize(u1.device)
+            ms = (_time.perf_counter() - t0) * 1e3
+            s = replace(s, iteration=s.iteration + n, time=s.time + n * dt,
+                        conserved=u1)
+            schedule = mark_tasks(schedule, s.time,
+                                  [("write_diagnostics", dfi)])
+            num_zones = u1.shape[0] * u1.shape[1] * u1.shape[2]
+            rec.count("steps", n)
+            rec.annotate(steps=n)
+            with rec.span("mara3.print"):
+                print(f"[{s.iteration:04d}] t={s.time:3.7f} "
+                      f"kzps={n * num_zones / max(ms, 1e-9):3.2f} "
+                      f"[{LAST_PATH}]")
     return tasks(State(s, schedule), cfg)
 
 

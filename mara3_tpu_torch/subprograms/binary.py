@@ -932,15 +932,19 @@ def build_scan(cfg, sd: SolverData):
     """The fast loop's scan: kernel B3 launches of up to multi_launch steps
     when multi_launch > 0 and the configuration is in B3's scope, else the
     per-step scan."""
+    from mara3_tpu_torch.app import tracing
     from mara3_tpu_torch.schemes import binary_step
-    k = cfg.get_int("multi_launch")
-    if k > 0:
-        try:
-            return binary_step.make_multi_scan(sd, k_chunk=k)
-        except NotImplementedError as e:
-            print(f"multi_launch: per-step scan for this configuration "
-                  f"({e})")
-    return binary_step.make_fast_scan(sd)
+    rec = tracing.recorder()
+    rec.count("table_builds")
+    with rec.span("mara3.tables"):
+        k = cfg.get_int("multi_launch")
+        if k > 0:
+            try:
+                return binary_step.make_multi_scan(sd, k_chunk=k)
+            except NotImplementedError as e:
+                print(f"multi_launch: per-step scan for this configuration "
+                      f"({e})")
+        return binary_step.make_fast_scan(sd)
 
 
 def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
@@ -953,10 +957,15 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
     faulted one in safe mode. Checkpoints and diagnostics run at the first
     chunk boundary after they come due. With regrid=1 a chunk also stops at
     the next regrid, and a regrid that changes the tree rebuilds the scan
-    (B3's tables) on the new solver data."""
+    (B3's tables) on the new solver data. Under a profiler the loop records
+    the spans and counters of app/tracing.py; a chunk of more than one B3
+    launch keeps its spans off the profiler's timeline (app/tracing.py says
+    why)."""
     import time as _time
 
+    from mara3_tpu_torch.app import tracing
     from mara3_tpu_torch.schemes import binary_step
+    rec = tracing.recorder()
     IX = binary_step.INFO_INDEX
     scan_steps = build_scan(cfg, sd)
     s = binary_step.solution_to_arrays(state.solution)
@@ -970,11 +979,13 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
         ("write_diagnostics", cfg.get_double("dfi") * 2 * math.pi),
         ("record_time_series", tsi_t)]
     retry_step = None                      # built when a fault needs it
+    k_launch = cfg.get_int("multi_launch")
     regrid_on = cfg.get_int("regrid") != 0
     rgi_t = cfg.get_double("rgi") * 2 * math.pi
 
     def replay(s_, n_):
         """n_ steps of the scan in CHUNKS-sized calls: (state, host rows)."""
+        rec.count("replay_steps", n_)
         parts = []
         while n_ > 0:
             c = next(cc for cc in CHUNKS if cc <= n_)
@@ -997,6 +1008,7 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
         if bool(info["invalid"]):
             raise NegativeDensityError(
                 "negative density persisted through safe-mode retry")
+        rec.count("retries")
         print("negative density: step retried in safe mode (dt/10, "
               "theta=0)")
         good.append(binary_step.pack_info_host(
@@ -1006,85 +1018,118 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
 
     t_now = float(state.solution.time)
     t_f64 = t_now                          # float64 time anchor
+    iteration = int(state.solution.iteration)
     next_regrid = t_now + rgi_t
     dt_est = None
     while t_now < tfinal_t:
-        if regrid_on and t_now >= next_regrid:
-            sol2, sd2 = apply_regrid(
-                binary_step.arrays_to_solution(s, Solution), sd, cfg)
-            if sd2 is not sd:
-                sd = sd2
-                scan_steps = build_scan(cfg, sd)
-                retry_step = None
-                num_zones = len(sd.leaves) * cfg.get_int("block_size") ** 2
-                s = binary_step.solution_to_arrays(sol2)
-            next_regrid += rgi_t
-        if dt_est is None:
-            n = 1                          # learn dt first
-        else:
-            remaining = max(1, int((tfinal_t - t_now) / dt_est) + 1)
-            # stop at the next regrid
-            n_cap = (max(1, int((next_regrid - t_now) / dt_est) + 1)
-                     if regrid_on else remaining)
-            # stop just short of the predicted time-series due, so that
-            # the due falls in the first steps of the next chunk and its
-            # replay is short
-            next_ts = schedule.last_performed("record_time_series") + tsi_t
-            if t_now < next_ts:
-                to_due = max(1, int((next_ts - t_now) / dt_est) - 1)
-                n_cap = min(n_cap, to_due)
-            remaining = min(remaining, n_cap)
-            n = next(c for c in CHUNKS if c <= remaining)
+        with rec.span("mara3.chunk", False, iteration=iteration):
+            if regrid_on and t_now >= next_regrid:
+                rec.count("regrids")
+                with rec.span("mara3.regrid"):
+                    sol2, sd2 = apply_regrid(
+                        binary_step.arrays_to_solution(s, Solution), sd, cfg)
+                    if sd2 is not sd:
+                        rec.count("tree_changes")
+                        sd = sd2
+                        scan_steps = build_scan(cfg, sd)
+                        retry_step = None
+                        num_zones = (len(sd.leaves)
+                                     * cfg.get_int("block_size") ** 2)
+                        s = binary_step.solution_to_arrays(sol2)
+                next_regrid += rgi_t
+            with rec.span("mara3.plan"):
+                if dt_est is None:
+                    n = 1                          # learn dt first
+                else:
+                    remaining = max(1, int((tfinal_t - t_now) / dt_est) + 1)
+                    # stop at the next regrid
+                    n_cap = (max(1, int((next_regrid - t_now) / dt_est) + 1)
+                             if regrid_on else remaining)
+                    # stop just short of the predicted time-series due, so
+                    # that the due falls in the first steps of the next
+                    # chunk and its replay is short
+                    next_ts = (schedule.last_performed("record_time_series")
+                               + tsi_t)
+                    if t_now < next_ts:
+                        to_due = max(1, int((next_ts - t_now) / dt_est) - 1)
+                        n_cap = min(n_cap, to_due)
+                    remaining = min(remaining, n_cap)
+                    n = next(c for c in CHUNKS if c <= remaining)
 
-        t0 = _time.perf_counter()
-        s_prev = s
-        s, rows = scan_steps(s, n)
-        rows = rows.cpu().numpy()          # the chunk's one device read
-        ms = (_time.perf_counter() - t0) * 1e3
+            t0 = _time.perf_counter()
+            s_prev = s
+            # a chunk of one B3 launch goes on the profiler's timeline; a
+            # longer one stays in the store only (app/tracing.py)
+            one_launch = k_launch <= 0 or n <= k_launch
+            if one_launch:
+                rec.put_on_timeline()
+            with rec.span("mara3.launch", one_launch):
+                s, rows = scan_steps(s, n)
+            with rec.span("mara3.wait"):
+                rows = rows.cpu().numpy()      # the chunk's one device read
+            ms = (_time.perf_counter() - t0) * 1e3
 
-        if rows[:, IX["invalid"]].any():
-            s, rows = repair(s_prev, rows)
+            if rows[:, IX["invalid"]].any():
+                with rec.span("mara3.repair", one_launch):
+                    s, rows = repair(s_prev, rows)
 
-        # the time accumulates in the run's dtype on the device; a float32
-        # run takes it back each chunk from a float64 sum of the dt used
-        # (the reference carries time in double)
-        t_f64 += float(rows[:, IX["dt"]].astype(np.float64).sum())
-        if s["time"].dtype == torch.float32:
-            s = {**s, "time": torch.full((), t_f64, dtype=torch.float32,
-                                         device=s["time"].device)}
+            with rec.span("mara3.mark"):
+                # the time accumulates in the run's dtype on the device; a
+                # float32 run takes it back each chunk from a float64 sum of
+                # the dt used (the reference carries time in double)
+                t_f64 += float(rows[:, IX["dt"]].astype(np.float64).sum())
+                if s["time"].dtype == torch.float32:
+                    s = {**s, "time": torch.full(
+                        (), t_f64, dtype=torch.float32,
+                        device=s["time"].device)}
 
-        due_steps = []
-        for i, row in enumerate(rows):
-            schedule = mark_tasks(schedule, float(row[IX["time"]]),
-                                  intervals)
-            if schedule.is_due("record_time_series"):
-                due_steps.append(i)
-                schedule = schedule.mark_as_completed("record_time_series")
-        # sample the whole state at each due step (the reference records
-        # the current solution, subprog_binary.cpp:358-378): the last
-        # step's state is s; earlier dues replay from the chunk head
-        s_cursor, done = s_prev, 0
-        for i in due_steps:
-            if i == len(rows) - 1:
-                s_due = s
-            else:
-                s_cursor, _ = replay(s_cursor, i + 1 - done)
-                done = i + 1
-                s_due = s_cursor
-            ts = ts + (time_series_sample(
-                binary_step.arrays_to_solution(s_due, Solution), sd),)
+                due_steps = []
+                for i, row in enumerate(rows):
+                    schedule = mark_tasks(schedule, float(row[IX["time"]]),
+                                          intervals)
+                    if schedule.is_due("record_time_series"):
+                        due_steps.append(i)
+                        schedule = schedule.mark_as_completed(
+                            "record_time_series")
+            # sample the whole state at each due step (the reference records
+            # the current solution, subprog_binary.cpp:358-378): the last
+            # step's state is s; earlier dues replay from the chunk head
+            s_cursor, done = s_prev, 0
+            for i in due_steps:
+                rec.count("outputs.record_time_series")
+                with rec.span("mara3.output", one_launch,
+                              task="record_time_series"):
+                    if i == len(rows) - 1:
+                        s_due = s
+                    else:
+                        with rec.span("mara3.replay", one_launch):
+                            s_cursor, _ = replay(s_cursor, i + 1 - done)
+                        done = i + 1
+                        s_due = s_cursor
+                    with rec.span("mara3.sample"):
+                        ts = ts + (time_series_sample(
+                            binary_step.arrays_to_solution(s_due, Solution),
+                            sd),)
 
-        if schedule.is_due("write_diagnostics") or \
-                schedule.is_due("write_checkpoint"):
-            st = tasks(State(binary_step.arrays_to_solution(s, Solution),
-                             schedule, ts, cfg), sd)
-            schedule, ts = st.schedule, st.time_series
+            due = [task for task in ("write_diagnostics", "write_checkpoint")
+                   if schedule.is_due(task)]
+            if due:
+                for task in due:
+                    rec.count(f"outputs.{task}")
+                with rec.span("mara3.output", task="+".join(due)):
+                    st = tasks(State(binary_step.arrays_to_solution(
+                        s, Solution), schedule, ts, cfg), sd)
+                schedule, ts = st.schedule, st.time_series
 
-        t_now = float(rows[-1, IX["time"]])
-        dt_est = float(rows[:, IX["dt"]].min())
-        print(f"[{int(rows[-1, IX['iteration']]):04d}] "
-              f"orbits={t_now / (2 * math.pi):3.7f} "
-              f"kzps={n * num_zones / max(ms, 1e-12):3.2f}")
+            t_now = float(rows[-1, IX["time"]])
+            dt_est = float(rows[:, IX["dt"]].min())
+            iteration = int(rows[-1, IX["iteration"]])
+            rec.count("steps", len(rows))
+            rec.annotate(steps=len(rows))
+            with rec.span("mara3.print"):
+                print(f"[{iteration:04d}] "
+                      f"orbits={t_now / (2 * math.pi):3.7f} "
+                      f"kzps={n * num_zones / max(ms, 1e-12):3.2f}")
 
     state = State(binary_step.arrays_to_solution(s, Solution), schedule, ts,
                   cfg)
