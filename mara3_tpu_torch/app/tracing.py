@@ -44,8 +44,10 @@ The spans of the fast driver loops (binary, amrsand):
 
 Its counters: `steps` (useful steps advanced), `replay_steps` (steps run
 again to reach a due or to rewind a faulted chunk), `outputs.<task>`,
-`retries` (safe-mode retries), `regrids`, `tree_changes` and
-`table_builds`.
+`retries` (safe-mode retries), `regrids`, `tree_changes`,
+`table_builds` and, in binary, `geometry_uploads` (the mesh geometry taken
+to the device, once per solver data: the rows and the diagnostics read
+it there).
 
 `profile_to` runs a whole subprogram under the profiler and writes its
 Chrome trace and the store's summary (`MARA3_PROFILE_DIR`, app/subprogram).

@@ -62,23 +62,27 @@ def solution_to_arrays(sol, dtype=None, device=None) -> dict:
     return s
 
 
-def host_values(s) -> dict:
-    """Every field of a state but `conserved` as host numbers, read from the
-    device in one copy."""
+def host_values(s, extra=()) -> dict:
+    """Every field of a state but `conserved` as host numbers, and the 0-d
+    tensors `extra` as the floats of out["extra"], read from the device in
+    one copy."""
     keys = SCALAR_FIELDS + PAIR_FIELDS + ELEMENT_FIELDS
-    flat = torch.cat([s[k].reshape(-1).to(torch.float64) for k in keys])
+    flat = torch.cat([s[k].reshape(-1).to(torch.float64) for k in keys]
+                     + [e.reshape(1).to(torch.float64) for e in extra])
     flat = flat.cpu().numpy()
     out, at = {"iteration": int(s["iteration"])}, 0
     for k in keys:
         n = s[k].numel()
         out[k] = float(flat[at]) if k in SCALAR_FIELDS else flat[at:at + n]
         at += n
+    out["extra"] = [float(v) for v in flat[at:]]
     return out
 
 
-def arrays_to_solution(s, sol_cls):
-    """A Solution (of class sol_cls) from the fast step's state."""
-    h = host_values(s)
+def arrays_to_solution(s, sol_cls, h=None):
+    """A Solution (of class sol_cls) from the fast step's state; `h`, when
+    given, is host_values(s) already read."""
+    h = host_values(s) if h is None else h
     return sol_cls(
         time=h["time"],
         iteration=h["iteration"],

@@ -45,7 +45,7 @@ from typing import Mapping, Tuple
 import numpy as np
 import torch
 
-from mara3_tpu_torch.app import driver, serialize
+from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
 from mara3_tpu_torch.app.device import DEVICE_SELECTOR, resolve_device  # noqa: F401
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
@@ -191,6 +191,13 @@ class SolverData:
     advance: object = field(repr=False, default=None)
     maximum_timestep: object = field(repr=False, default=None)
 
+    @property
+    def device_geometry(self):
+        """(xc, dA) on the run's device in its dtype, which the time series
+        and the diagnostics read: the advance's own tables, converted from
+        `geometry` once, when create_solver_data built them."""
+        return self.advance.tables.xc, self.advance.tables.dA
+
 
 def create_leaves(cfg):
     """The leaf set: `depth` rounds of refinement inside the focus radius
@@ -275,6 +282,9 @@ def create_solver_data(cfg, leaves=None, *, device=None,
         raise ValueError("runtime option 'threaded' must be > 0")
 
     geometry = (xc, dA, spacing, xf, yf)
+    # the advance's tables take the geometry to the device, once per
+    # SolverData; the output path reads them (SolverData.device_geometry)
+    tracing.recorder().count("geometry_uploads")
     return SolverData(
         cfg_scheme=scheme, leaves=leaves, nt=nt, geometry=geometry,
         vertices=verts,
@@ -658,31 +668,47 @@ def read_solution(group, sd: SolverData) -> Solution:
 # subprog_binary_diagnostics.cpp)
 # -----------------------------------------------------------------------------
 
-def _device_geometry(sd: SolverData, k: int):
-    return torch.as_tensor(sd.geometry[k], dtype=sd.dtype, device=sd.device)
+def _disk_mass(u, sd: SolverData):
+    return torch.sum(u[..., 0] * sd.device_geometry[1])
+
+
+def _disk_angular_momentum(u, sd: SolverData):
+    xc, dA = sd.device_geometry
+    if sd.conserve_linear_p:
+        lz = iso2d.angular_momentum(u, xc)
+    else:
+        lz = u[..., 2]
+    return torch.sum(lz * dA)
 
 
 def disk_mass(solution: Solution, sd: SolverData) -> float:
-    return float(torch.sum(solution.conserved[..., 0]
-                           * _device_geometry(sd, 1)))
+    return float(_disk_mass(solution.conserved, sd))
 
 
 def disk_angular_momentum(solution: Solution, sd: SolverData) -> float:
-    dA = _device_geometry(sd, 1)
-    if sd.conserve_linear_p:
-        lz = iso2d.angular_momentum(solution.conserved,
-                                    _device_geometry(sd, 0))
+    return float(_disk_angular_momentum(solution.conserved, sd))
+
+
+def time_series_sample(solution, sd: SolverData):
+    """One TIME_SERIES_DTYPE row of a Solution, or of the fast step's state
+    (schemes/binary_step.py, a dict of device tensors). The disk's two sums
+    are formed on the device and read in one copy: with the fast state's
+    scalars, or with each other."""
+    if isinstance(solution, Mapping):
+        from mara3_tpu_torch.schemes import binary_step
+        u = solution["conserved"]
+        h = binary_step.host_values(solution, extra=(
+            _disk_mass(u, sd), _disk_angular_momentum(u, sd)))
+        mass, angmom = h["extra"]
+        solution = binary_step.arrays_to_solution(solution, Solution, h)
     else:
-        lz = solution.conserved[..., 2]
-    return float(torch.sum(lz * dA))
-
-
-def time_series_sample(solution: Solution, sd: SolverData):
+        u = solution.conserved
+        mass, angmom = torch.stack([_disk_mass(u, sd),
+                                    _disk_angular_momentum(u, sd)]).tolist()
     bstate = two_body.compute_two_body_state(solution.orbital_elements,
                                              solution.time)
     return np.array((
-        solution.time, disk_mass(solution, sd),
-        disk_angular_momentum(solution, sd),
+        solution.time, mass, angmom,
         solution.mass_accreted_on, solution.angular_momentum_accreted_on,
         solution.integrated_torque_on, solution.work_done_on,
         solution.mass_ejected, solution.angular_momentum_ejected,
@@ -695,7 +721,7 @@ def time_series_sample(solution: Solution, sd: SolverData):
 
 
 def diagnostic_fields(solution: Solution, sd: SolverData):
-    xc = _device_geometry(sd, 0)
+    xc, _ = sd.device_geometry
     if sd.conserve_linear_p:
         p0 = iso2d.recover_primitive(solution.conserved)
     else:
@@ -932,7 +958,6 @@ def build_scan(cfg, sd: SolverData):
     """The fast loop's scan: kernel B3 launches of up to multi_launch steps
     when multi_launch > 0 and the configuration is in B3's scope, else the
     per-step scan."""
-    from mara3_tpu_torch.app import tracing
     from mara3_tpu_torch.schemes import binary_step
     rec = tracing.recorder()
     rec.count("table_builds")
@@ -963,7 +988,6 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
     why)."""
     import time as _time
 
-    from mara3_tpu_torch.app import tracing
     from mara3_tpu_torch.schemes import binary_step
     rec = tracing.recorder()
     IX = binary_step.INFO_INDEX
@@ -1107,9 +1131,7 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
                         done = i + 1
                         s_due = s_cursor
                     with rec.span("mara3.sample"):
-                        ts = ts + (time_series_sample(
-                            binary_step.arrays_to_solution(s_due, Solution),
-                            sd),)
+                        ts = ts + (time_series_sample(s_due, sd),)
 
             due = [task for task in ("write_diagnostics", "write_checkpoint")
                    if schedule.is_due(task)]
