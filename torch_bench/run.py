@@ -8,7 +8,9 @@ Prints, as its last line of standard output, one JSON object: `correct`,
 mode), `metrics` (the cell's end-to-end metrics, or with --trace 1 its
 per-layer metrics), `device`, with --trace 1 `breakdown`, and last
 `checks` (each compared number beside its limit, also the last lines of
-standard error). Exits non-zero, printing no result, without a CUDA card.
+standard error). Exits non-zero, printing no result, without a CUDA card,
+or when the process holds JAX or the JAX package once the window has
+closed (named on standard error).
 """
 
 from __future__ import annotations
@@ -25,6 +27,15 @@ import traceback  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+# the top-level names the port's process may not hold: JAX, and the JAX
+# package it was ported from (whose name the port's begins with)
+BANNED = ("jax", "jaxlib", "flax", "mara3_tpu")
+
+
+def jax_loaded() -> list:
+    """The modules in sys.modules whose top-level name is a banned one."""
+    return sorted(name for name in sys.modules
+                  if name.split(".")[0] in BANNED)
 
 
 def main(argv=None) -> int:
@@ -61,6 +72,11 @@ def main(argv=None) -> int:
                   "metrics": {}, "device": device,
                   "checks": {"run": {"value": "failed",
                                      "limit": "completes"}}}
+    found = jax_loaded()
+    if found:
+        print(f"the run loaded JAX or the JAX package: {', '.join(found)}",
+              file=sys.stderr)
+        return 3
     print(json.dumps(result), flush=True)
     return 0
 

@@ -78,8 +78,8 @@ def system(subprogram: str):
 
 
 def problems(bench: dict) -> list:
-    """What in BENCHMARK.json breaks the naming rules or names a file or
-    cell that is not there."""
+    """What in BENCHMARK.json breaks the naming rules, names a file or
+    cell that is not there, or leaves a configuration with no cell."""
     out = []
     metrics = bench["end_to_end"] + bench["per_layer"]
     named = bench["configs"] + bench["workloads"] + metrics
@@ -101,7 +101,10 @@ def problems(bench: dict) -> list:
             out.append(f"{m['name']} lists a cell that is not there")
         if not (HERE / "metrics" / f"{m['name']}.py").exists():
             out.append(f"no reader for {m['name']}")
+    used = {w["config"] for w in bench["workloads"]}
     for c in bench["configs"]:
+        if c["name"] not in used:
+            out.append(f"configuration {c['name']} has no cell")
         if not (ROOT / c["file"]).exists():
             out.append(f"no file {c['file']}")
         for key in c["reduced"]:

@@ -9,9 +9,12 @@ from __future__ import annotations
 
 import json
 import re
+import sys
+import types
 from pathlib import Path
 
 import pytest
+import torch
 
 from torch_bench import record, spec
 from torch_bench.work import model
@@ -24,6 +27,13 @@ METRICS = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
 
 def test_benchmark_json_has_no_problems():
     assert spec.problems(BENCH) == []
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_a_configuration_left_without_a_cell_is_a_problem(config):
+    cells = [w for w in BENCH["workloads"] if w["config"] != config]
+    assert f"configuration {config} has no cell" in spec.problems(
+        {**BENCH, "workloads": cells})
 
 
 def test_benchmark_json_keys_and_limits():
@@ -86,6 +96,27 @@ def test_no_file_imports_jax_or_the_jax_package():
                         r"|chip_smoke)\b(?!_torch)", re.M)
     for path in HERE.rglob("*.py"):
         assert not banned.search(path.read_text()), path
+
+
+def test_a_run_that_holds_jax_prints_no_result(monkeypatch, capsys):
+    from torch_bench import harness, run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch, "set_num_threads", lambda n: None)
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(harness, "run_cell", lambda *a: {"correct": True})
+    argv = ["--workload", CELLS[0], "--seed", "1", "--seconds", "1"]
+    assert run.main(argv) == 0
+    assert json.loads(capsys.readouterr().out) == {"correct": True}
+    # the port's own name begins with the JAX package's and is no match
+    monkeypatch.setitem(sys.modules, "mara3_tpu_torch.x",
+                        types.ModuleType("x"))
+    assert run.jax_loaded() == []
+    monkeypatch.setitem(sys.modules, "mara3_tpu.mesh", types.ModuleType("m"))
+    assert run.main(argv) != 0
+    out = capsys.readouterr()
+    assert out.out == "" and "mara3_tpu.mesh" in out.err
 
 
 def _window(stall_s: float = 0.0):
