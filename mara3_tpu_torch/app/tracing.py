@@ -31,7 +31,7 @@ reduces it to a count, total and self milliseconds per span name, a
 span's self time being its duration less the union of its children's
 intervals.
 
-The spans of the fast driver loops (binary, amrsand):
+The spans of the fast driver loops (binary, amrsand, sedov):
 
 - `mara3.chunk`, one chunk (attributes `iteration`, `steps`), holding
 - `mara3.plan` (the chunk planner), `mara3.launch` (the host's enqueue),
@@ -40,14 +40,17 @@ The spans of the fast driver loops (binary, amrsand):
   marks), `mara3.output` (one output, attribute `task`; inside it
   `mara3.replay` and `mara3.sample` for a time-series row),
   `mara3.regrid`, `mara3.tables` (kernel B3's or B6's tables) and
-  `mara3.print` (the progress line).
+  `mara3.print` (the progress line);
+- `mara3.recover`, a sedov row's or diagnostics write's primitive
+  recovery of the whole state.
 
 Its counters: `steps` (useful steps advanced), `replay_steps` (steps run
 again to reach a due or to rewind a faulted chunk), `outputs.<task>`,
 `retries` (safe-mode retries), `regrids`, `tree_changes`,
-`table_builds` and, in binary, `geometry_uploads` (the mesh geometry taken
+`table_builds`, in binary `geometry_uploads` (the mesh geometry taken
 to the device, once per solver data: the rows and the diagnostics read
-it there).
+it there) and, wherever the SRHD Newton of physics/srhd.py runs,
+`recover_passes` (its host reads of whether every cell has converged).
 
 `profile_to` runs a whole subprogram under the profiler and writes its
 Chrome trace and the store's summary (`MARA3_PROFILE_DIR`, app/subprogram).

@@ -12,11 +12,15 @@ iterates together, a converged cell freezes, and the loop ends when every
 cell has converged or after 50 updates. It runs 5 updates per pass and
 reads `all(done)` on the host once per pass (the JAX package's while_loop
 check), so a recovery on a CUDA tensor waits for the card once per pass.
+Under a profiler each of those host reads counts one `recover_passes`
+(app/tracing.py).
 """
 
 from __future__ import annotations
 
 import torch
+
+from mara3_tpu_torch.app import tracing
 
 NUM_COMPONENTS = 5
 
@@ -176,11 +180,15 @@ def _newton(D, SS, tau, p0, gm, eps_rel, f_floor):
         W_out = torch.where(done, Wc, torch.where(newly, W, Wc))
         return p_out, W_out, done | newly
 
+    rec = tracing.recorder()
     p, W0 = p0, torch.ones_like(D)
     done = torch.zeros_like(D, dtype=torch.bool)
     it = 0
     # the while_loop's test, read on the host once per pass of CHUNK updates
-    while it < NEWTON_ITER_MAX and not bool(done.all()):
+    while it < NEWTON_ITER_MAX:
+        rec.count("recover_passes")
+        if bool(done.all()):
+            break
         for _ in range(CHUNK):
             p, W0, done = one_update(p, W0, done)
         it += CHUNK

@@ -40,7 +40,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from mara3_tpu_torch.app import driver, serialize
+from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
 from mara3_tpu_torch.app.device import resolve_device
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
@@ -325,9 +325,12 @@ def next_solution(s: Solution, newtonian: bool, reconstruct: str = "pcm",
 # -----------------------------------------------------------------------------
 
 def primitives_of(s: Solution, system):
-    dv = cell_volumes(s.vertices).to(s.conserved.dtype)
-    return system.recover_primitive(s.conserved / dv[:, None],
-                                    GAMMA_LAW_INDEX, 0.0)
+    """The primitives of the whole state (a row's or a diagnostics
+    write's recovery: the `mara3.recover` span under a profiler)."""
+    with tracing.recorder().span("mara3.recover"):
+        dv = cell_volumes(s.vertices).to(s.conserved.dtype)
+        return system.recover_primitive(s.conserved / dv[:, None],
+                                        GAMMA_LAW_INDEX, 0.0)
 
 
 def make_diagnostic_fields(s: Solution, system):
@@ -522,40 +525,54 @@ def setup(argv, *, device=None, dtype=None):
 
 def _run_fast(cfg, state: State, tasks) -> State:
     """The chunked loop: each chunk (128, 32, 8 or 1 steps) is one
-    advance_n call, planned to land on the next task due or tfinal."""
+    advance_n call, planned to land on the next task due or tfinal. Under a
+    profiler the loop records the spans and counters of app/tracing.py."""
+    rec = tracing.recorder()
     s = state.solution
     schedule = state.schedule
     newtonian = cfg.get_int("newtonian") != 0
     dt = grid_dt(s.vertices)
     tfinal = cfg.get_double("tfinal")
-    rec = cfg.get_string("reconstruct_method")
+    method = cfg.get_string("reconstruct_method")
     theta = cfg.get_double("plm_theta")
     intervals = _intervals(cfg)
     u, t, it = s.conserved, float(s.time), int(s.iteration)
     nz = u.shape[0]
     eps = 1e-12
     while t < tfinal - eps:
-        n_cap = max(1, int(math.ceil((tfinal - t) / dt - eps)))
-        for name, ivl in intervals:
-            nxt = schedule.last_performed(name) + ivl
-            if nxt > t + eps:
-                n_cap = min(n_cap, max(1, int(math.ceil(
-                    (nxt - t) / dt - eps))))
-        n = next(c for c in CHUNKS if c <= n_cap)
-        t0 = _time.perf_counter()
-        u = advance_n(u, s.vertices, dt, newtonian, n, rec, theta)
-        if u.is_cuda:
-            torch.cuda.synchronize(u.device)
-        ms = (_time.perf_counter() - t0) * 1e3
-        t += n * dt
-        it += n
-        schedule = mark_tasks(schedule, t, intervals)
-        if any(schedule.is_due(name) for name, _ in intervals):
-            st = tasks(State(replace(s, time=t, iteration=it, conserved=u),
-                             schedule), cfg)
-            schedule = st.schedule
-        print(f"[{it:04d}] t={t:3.7f} kzps={n * nz / max(ms, 1e-9):3.2f} "
-              f"[{LAST_PATH}]")
+        with rec.span("mara3.chunk", iteration=it):
+            with rec.span("mara3.plan"):
+                n_cap = max(1, int(math.ceil((tfinal - t) / dt - eps)))
+                for name, ivl in intervals:
+                    nxt = schedule.last_performed(name) + ivl
+                    if nxt > t + eps:
+                        n_cap = min(n_cap, max(1, int(math.ceil(
+                            (nxt - t) / dt - eps))))
+                n = next(c for c in CHUNKS if c <= n_cap)
+            t0 = _time.perf_counter()
+            with rec.span("mara3.launch"):
+                u = advance_n(u, s.vertices, dt, newtonian, n, method,
+                              theta)
+            with rec.span("mara3.wait"):
+                if u.is_cuda:
+                    torch.cuda.synchronize(u.device)
+            ms = (_time.perf_counter() - t0) * 1e3
+            t += n * dt
+            it += n
+            rec.count("steps", n)
+            rec.annotate(steps=n)
+            schedule = mark_tasks(schedule, t, intervals)
+            due = [name for name, _ in intervals if schedule.is_due(name)]
+            if due:
+                for name in due:
+                    rec.count(f"outputs.{name}")
+                with rec.span("mara3.output", task="+".join(due)):
+                    st = tasks(State(replace(s, time=t, iteration=it,
+                                             conserved=u), schedule), cfg)
+                schedule = st.schedule
+            with rec.span("mara3.print"):
+                print(f"[{it:04d}] t={t:3.7f} "
+                      f"kzps={n * nz / max(ms, 1e-9):3.2f} [{LAST_PATH}]")
     final = State(replace(s, time=t, iteration=it, conserved=u),
                   mark_tasks(schedule, t, intervals))
     return tasks(final, cfg)
