@@ -45,7 +45,10 @@ The spans of the fast driver loops (binary, amrsand, sedov):
   recovery of the whole state.
 
 Its counters: `steps` (useful steps advanced), `replay_steps` (steps run
-again to reach a due or to rewind a faulted chunk), `outputs.<task>`,
+again to reach a due or to rewind a faulted chunk), in binary
+`planned_to_due` (chunks whose plan aimed at a time-series due) and
+`planned_due_hits` (of those, the chunks whose last step was that due:
+their ratio is the plan's hit share), `outputs.<task>`,
 `retries` (safe-mode retries), `regrids`, `tree_changes`,
 `table_builds`, in binary `geometry_uploads` (the mesh geometry taken
 to the device, once per solver data: the rows and the diagnostics read

@@ -950,8 +950,52 @@ def run(cfg, sd: SolverData, state: State, tasks=run_tasks) -> State:
     return replace(final, solver_data=sd)
 
 
-# chunk lengths of the fast loop, longest first
-CHUNKS = (256, 64, 16, 4, 1)
+# the fast loop's longest chunk, in steps
+MAX_CHUNK = 256
+
+
+def steps_to(t_now: float, dts, t_stop: float) -> int:
+    """The fewest steps from t_now after which the time may have reached
+    t_stop, at least 1; MAX_CHUNK + 1 when that is beyond MAX_CHUNK. Step j
+    ahead is bounded by dt_max + rise j, from `dts` (recent steps' dt,
+    oldest first): their largest, and their largest step-to-step rise.
+    With no step above its bound, t_stop is not reached before the step
+    returned."""
+    gap = t_stop - t_now
+    if gap <= 0:
+        return 1
+    dts = np.asarray(dts)
+    dt_max = float(dts.max())
+    rise = max(float((dts[1:] - dts[:-1]).max()), 0.0)
+
+    def short(n):                          # n bounded steps fall short
+        return n * dt_max + rise * n * (n + 1) / 2 < gap
+
+    # the root of the bounded steps' sum, then the least n not short
+    b = dt_max + rise / 2
+    root = (gap / dt_max if rise == 0 else
+            (math.sqrt(b * b + 2 * rise * gap) - b) / rise)
+    n = min(max(math.ceil(root), 1), MAX_CHUNK + 1)
+    while n > 1 and not short(n - 1):
+        n -= 1
+    while n <= MAX_CHUNK and short(n):
+        n += 1
+    return n
+
+
+def plan_chunk(t_now: float, dts, next_due: float, next_regrid,
+               tfinal: float) -> int:
+    """The steps of the fast loop's next chunk from t_now: one while fewer
+    than two dt are known (`dts`, recent steps' dt, oldest first; None at
+    the start), to learn dt and its rise; else the steps to the nearest of
+    the next time-series due, the next regrid (None without regrid) and
+    tfinal that they may reach (steps_to), at most MAX_CHUNK. A due then
+    falls on the chunk's last step or after it, not before."""
+    if dts is None or len(dts) < 2:
+        return 1
+    stop = min(next_due, tfinal,
+               math.inf if next_regrid is None else next_regrid)
+    return min(steps_to(t_now, dts, stop), MAX_CHUNK)
 
 
 def build_scan(cfg, sd: SolverData):
@@ -974,18 +1018,19 @@ def build_scan(cfg, sd: SolverData):
 
 def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
     """The driver loop over device-resident steps (the JAX package's
-    _main_fast). Steps run in chunks (CHUNKS) whose packed info rows the
-    host reads once; the schedule marking replays from the rows. A chunk
-    stops just short of the next time-series due, and a due inside a chunk
-    is sampled by replaying the chunk to it from its head. A chunk with a
-    negative density is repaired: rewind, replay the good steps, retry the
-    faulted one in safe mode. Checkpoints and diagnostics run at the first
-    chunk boundary after they come due. With regrid=1 a chunk also stops at
-    the next regrid, and a regrid that changes the tree rebuilds the scan
-    (B3's tables) on the new solver data. Under a profiler the loop records
-    the spans and counters of app/tracing.py; a chunk of more than one B3
-    launch keeps its spans off the profiler's timeline (app/tracing.py says
-    why)."""
+    _main_fast). Steps run in chunks whose packed info rows the host reads
+    once; the schedule marking replays from the rows. plan_chunk ends a
+    chunk on the step that the next time-series due is predicted to fall
+    on, from the recent steps' dt; a due that falls inside a chunk all the
+    same is sampled by replaying the chunk to it from its head. A chunk
+    with a negative density is repaired: rewind, replay the good steps,
+    retry the faulted one in safe mode. Checkpoints and diagnostics run at
+    the first chunk boundary after they come due. With regrid=1 a chunk
+    also stops at the next regrid, and a regrid that changes the tree
+    rebuilds the scan (B3's tables) on the new solver data. Under a
+    profiler the loop records the spans and counters of app/tracing.py; a
+    chunk of more than one B3 launch keeps its spans off the profiler's
+    timeline (app/tracing.py says why)."""
     import time as _time
 
     from mara3_tpu_torch.schemes import binary_step
@@ -1008,15 +1053,12 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
     rgi_t = cfg.get_double("rgi") * 2 * math.pi
 
     def replay(s_, n_):
-        """n_ steps of the scan in CHUNKS-sized calls: (state, host rows)."""
+        """n_ steps of the scan in one call: (state, host rows)."""
         rec.count("replay_steps", n_)
-        parts = []
-        while n_ > 0:
-            c = next(cc for cc in CHUNKS if cc <= n_)
-            s_, r = scan_steps(s_, c)
-            parts.append(r.cpu().numpy())
-            n_ -= c
-        return s_, parts
+        if n_ == 0:
+            return s_, np.zeros((0, binary_step.INFO_WIDTH))
+        s_, r = scan_steps(s_, n_)
+        return s_, r.cpu().numpy()
 
     def repair(s_prev, rows):
         """Rewind to the chunk head, replay the steps before the first
@@ -1035,16 +1077,18 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
         rec.count("retries")
         print("negative density: step retried in safe mode (dt/10, "
               "theta=0)")
-        good.append(binary_step.pack_info_host(
+        retried = binary_step.pack_info_host(
             {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
-             for k, v in info.items()})[None])
-        return s2, np.concatenate(good, axis=0)
+             for k, v in info.items()})
+        return s2, np.concatenate([good, retried[None]], axis=0)
 
     t_now = float(state.solution.time)
     t_f64 = t_now                          # float64 time anchor
+    t_start = t_now                        # the device's time at chunk
+    #                                        start: the plan's origin
     iteration = int(state.solution.iteration)
     next_regrid = t_now + rgi_t
-    dt_est = None
+    dts = None                             # recent steps' dt, for the plan
     while t_now < tfinal_t:
         with rec.span("mara3.chunk", False, iteration=iteration):
             if regrid_on and t_now >= next_regrid:
@@ -1057,28 +1101,20 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
                         sd = sd2
                         scan_steps = build_scan(cfg, sd)
                         retry_step = None
+                        dts = None         # a new tree, a new dt: learn it
                         num_zones = (len(sd.leaves)
                                      * cfg.get_int("block_size") ** 2)
                         s = binary_step.solution_to_arrays(sol2)
                 next_regrid += rgi_t
             with rec.span("mara3.plan"):
-                if dt_est is None:
-                    n = 1                          # learn dt first
-                else:
-                    remaining = max(1, int((tfinal_t - t_now) / dt_est) + 1)
-                    # stop at the next regrid
-                    n_cap = (max(1, int((next_regrid - t_now) / dt_est) + 1)
-                             if regrid_on else remaining)
-                    # stop just short of the predicted time-series due, so
-                    # that the due falls in the first steps of the next
-                    # chunk and its replay is short
-                    next_ts = (schedule.last_performed("record_time_series")
-                               + tsi_t)
-                    if t_now < next_ts:
-                        to_due = max(1, int((next_ts - t_now) / dt_est) - 1)
-                        n_cap = min(n_cap, to_due)
-                    remaining = min(remaining, n_cap)
-                    n = next(c for c in CHUNKS if c <= remaining)
+                next_ts = (schedule.last_performed("record_time_series")
+                           + tsi_t)
+                n = plan_chunk(t_start, dts, next_ts,
+                               next_regrid if regrid_on else None, tfinal_t)
+                to_due = (dts is not None and len(dts) > 1
+                          and n == steps_to(t_start, dts, next_ts))
+            if to_due:
+                rec.count("planned_to_due")
 
             t0 = _time.perf_counter()
             s_prev = s
@@ -1102,9 +1138,14 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
                 # float32 run takes it back each chunk from a float64 sum of
                 # the dt used (the reference carries time in double)
                 t_f64 += float(rows[:, IX["dt"]].astype(np.float64).sum())
+                # the plan's dt: this chunk's and the step before it
+                dts = (rows[:, IX["dt"]] if dts is None else
+                       np.concatenate([dts[-1:], rows[:, IX["dt"]]]))
+                t_start = float(rows[-1, IX["time"]])
                 if s["time"].dtype == torch.float32:
+                    t_start = float(np.float32(t_f64))
                     s = {**s, "time": torch.full(
-                        (), t_f64, dtype=torch.float32,
+                        (), t_start, dtype=torch.float32,
                         device=s["time"].device)}
 
                 due_steps = []
@@ -1115,6 +1156,8 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
                         due_steps.append(i)
                         schedule = schedule.mark_as_completed(
                             "record_time_series")
+            if to_due and due_steps[:1] == [len(rows) - 1]:
+                rec.count("planned_due_hits")
             # sample the whole state at each due step (the reference records
             # the current solution, subprog_binary.cpp:358-378): the last
             # step's state is s; earlier dues replay from the chunk head
@@ -1144,7 +1187,6 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
                 schedule, ts = st.schedule, st.time_series
 
             t_now = float(rows[-1, IX["time"]])
-            dt_est = float(rows[:, IX["dt"]].min())
             iteration = int(rows[-1, IX["iteration"]])
             rec.count("steps", len(rows))
             rec.annotate(steps=len(rows))
