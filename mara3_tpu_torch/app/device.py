@@ -25,3 +25,10 @@ def resolve_device(device=None) -> torch.device:
                 f"{DEVICE_SELECTOR}=cpu for the command line")
         device = "cuda"
     return torch.device(device)
+
+
+def resolve_auto(cfg, key: str, device) -> int:
+    """The int `key` of `cfg`, its -1 (auto) resolved: 1 on a CUDA device,
+    0 elsewhere."""
+    value = cfg.get_int(key)
+    return int(torch.device(device).type == "cuda") if value < 0 else value

@@ -9,7 +9,8 @@ common parts are factored once:
 - numbered checkpoint paths and schedules
 - numbered checkpoints with solution/schedule/run_config groups
   (reference subprog_boilerplate.cpp:201-210)
-- the ``[iter] t=... kzps=...`` line of a per-step loop
+- the fixed-dt loops' chunk plan, traced outputs and ``[iter] t=...
+  kzps=... [path]`` line, and the line of a per-step loop
 - the finiteness test of a run's state at each write and at its end
 
 h5py is imported only by the functions that open a file, so a run that
@@ -18,6 +19,8 @@ writes no checkpoint needs no h5py.
 
 from __future__ import annotations
 
+import contextlib
+import math
 import os
 
 import numpy as np
@@ -77,6 +80,45 @@ def write_checkpoint_groups(path: str, run_config: Config,
         serialize.write_schedule(f.require_group("schedule"), schedule)
         serialize.write_config(f.require_group("run_config"), run_config)
     print(f"write checkpoint: {path}")
+
+
+EPS = 1e-12     # the planner's tolerance on times, the JAX package's value
+
+
+def steps_to_next_stop(t: float, dt: float, tfinal: float, dues=()) -> int:
+    """The fewest whole steps of dt from t, at least 1, that reach tfinal
+    or the nearest of `dues` (each task's last_performed + interval, the
+    next regrid) lying more than EPS ahead of t."""
+    n = max(1, int(math.ceil((tfinal - t) / dt - EPS)))
+    for due in dues:
+        if due > t + EPS:
+            n = min(n, max(1, int(math.ceil((due - t) / dt - EPS))))
+    return n
+
+
+@contextlib.contextmanager
+def traced_outputs(rec, schedule):
+    """Around a fixed-dt loop's task call: counts `outputs.<task>` for each
+    task due in `schedule` and, if one is, opens `mara3.output` with task
+    the due names joined by "+". Yields the due names."""
+    due = [task.name for task in schedule if task.is_due]
+    for name in due:
+        rec.count(f"outputs.{name}")
+    with (rec.span("mara3.output", task="+".join(due)) if due
+          else contextlib.nullcontext()):
+        yield due
+
+
+def end_chunk(rec, steps: int, iteration: int, time: float, zones: int,
+              ms: float, path: str):
+    """The end of a fixed-dt loop's chunk: the `steps` counter and
+    attribute, then in `mara3.print` the line ``[iter] t=... kzps=...
+    [path]`` that torch_bench/record.py and chip_smoke.py parse."""
+    rec.count("steps", steps)
+    rec.annotate(steps=steps)
+    with rec.span("mara3.print"):
+        print(f"[{iteration:04d}] t={time:3.7f} "
+              f"kzps={steps * zones / max(ms, 1e-9):3.2f} [{path}]")
 
 
 def print_run_loop_message(iteration: int, time: float, total_zones: int,

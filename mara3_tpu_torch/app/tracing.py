@@ -31,7 +31,8 @@ reduces it to a count, total and self milliseconds per span name, a
 span's self time being its duration less the union of its children's
 intervals.
 
-The spans of the fast driver loops (binary, amrsand, sedov):
+The spans of binary's loop and of the six fixed-dt loops (amrsand, sedov,
+cloud, sand3d, blast3d, kh, through app/driver.py and app/performance.py):
 
 - `mara3.chunk`, one chunk (attributes `iteration`, `steps`), holding
 - `mara3.plan` (the chunk planner), `mara3.launch` (the host's enqueue),

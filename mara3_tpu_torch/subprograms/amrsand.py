@@ -32,7 +32,6 @@ files.
 from __future__ import annotations
 
 import hashlib
-import math
 import time as _time
 from dataclasses import dataclass, replace
 from typing import Mapping
@@ -42,7 +41,8 @@ import torch
 
 from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
-from mara3_tpu_torch.app.device import resolve_device
+from mara3_tpu_torch.app.device import resolve_auto, resolve_device
+from mara3_tpu_torch.app.performance import time_execution, timed_launch
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
 from mara3_tpu_torch.app.subprogram import register
 from mara3_tpu_torch.kernels import amrsand_step
@@ -263,12 +263,6 @@ def apply_regrid(s: Solution, cfg):
 # driver
 # -----------------------------------------------------------------------------
 
-def resolve_fast_step(cfg, device) -> int:
-    """fast_step, with -1 resolved: 1 on a CUDA device, 0 on the CPU."""
-    fast = cfg.get_int("fast_step")
-    return int(torch.device(device).type == "cuda") if fast < 0 else fast
-
-
 def setup(argv, *, device=None, dtype=None):
     """Config and initial state (solution and schedule) of a run, with the
     banner; writes no file. Returns (cfg, state)."""
@@ -281,7 +275,7 @@ def setup(argv, *, device=None, dtype=None):
           f"{tree.tree_depth(s.leaves)}")
     where = (f"CUDA kernel B6 on {torch.cuda.get_device_name(device)}"
              if device.type == "cuda" else "the scheme (torch ops) on the CPU")
-    loop = "chunked" if resolve_fast_step(cfg, device) else "per-step"
+    loop = "chunked" if resolve_auto(cfg, "fast_step", device) else "per-step"
     regrid = (f", a regrid every {cfg.get_double('rgi')!r}"
               if cfg.get_int("regrid") else "")
     print(f"advance: {where}, "
@@ -302,16 +296,11 @@ def _run_fast(cfg, state: State, tasks) -> State:
     adaptive = cfg.get_int("regrid") != 0
     rgi = cfg.get_double("rgi")
     next_regrid = rgi
-    eps = 1e-12
     tfinal = cfg.get_double("tfinal")
     dfi = cfg.get_double("dfi")
-    while s.time < tfinal - eps:
+    while s.time < tfinal - driver.EPS:
         with rec.span("mara3.chunk", iteration=s.iteration):
-            if schedule.is_due("write_diagnostics"):
-                rec.count("outputs.write_diagnostics")
-                with rec.span("mara3.output", task="write_diagnostics"):
-                    state = tasks(State(s, schedule), cfg)
-            else:
+            with driver.traced_outputs(rec, schedule):
                 state = tasks(State(s, schedule), cfg)
             s, schedule = state.solution, state.schedule
             if adaptive and s.time >= next_regrid:
@@ -324,33 +313,19 @@ def _run_fast(cfg, state: State, tasks) -> State:
                 next_regrid += rgi
             with rec.span("mara3.plan"):
                 dt = time_step(s)
-                n_cap = max(1, int(math.ceil((tfinal - s.time) / dt - eps)))
-                nxt = schedule.last_performed("write_diagnostics") + dfi
-                if nxt > s.time + eps:
-                    n_cap = min(n_cap, max(1, int(math.ceil(
-                        (nxt - s.time) / dt - eps))))
-                if adaptive and next_regrid > s.time + eps:
-                    n_cap = min(n_cap, max(1, int(math.ceil(
-                        (next_regrid - s.time) / dt - eps))))
+                dues = [schedule.last_performed("write_diagnostics") + dfi]
+                if adaptive:
+                    dues.append(next_regrid)
+                n_cap = driver.steps_to_next_stop(s.time, dt, tfinal, dues)
                 n = next(c for c in CHUNKS if c <= n_cap)
-            t0 = _time.perf_counter()
-            with rec.span("mara3.launch"):
+            with timed_launch(rec, s.conserved.device) as launch:
                 u1 = advance_n(s.conserved, dxb, nt, dt, n)
-            with rec.span("mara3.wait"):
-                if u1.is_cuda:
-                    torch.cuda.synchronize(u1.device)
-            ms = (_time.perf_counter() - t0) * 1e3
             s = replace(s, iteration=s.iteration + n, time=s.time + n * dt,
                         conserved=u1)
             schedule = mark_tasks(schedule, s.time,
                                   [("write_diagnostics", dfi)])
-            num_zones = u1.shape[0] * u1.shape[1] * u1.shape[2]
-            rec.count("steps", n)
-            rec.annotate(steps=n)
-            with rec.span("mara3.print"):
-                print(f"[{s.iteration:04d}] t={s.time:3.7f} "
-                      f"kzps={n * num_zones / max(ms, 1e-9):3.2f} "
-                      f"[{LAST_PATH}]")
+            driver.end_chunk(rec, n, s.iteration, s.time, u1.numel(),
+                             launch.ms, LAST_PATH)
     return tasks(State(s, schedule), cfg)
 
 
@@ -369,16 +344,12 @@ def _run_per_step(cfg, state: State, tasks) -> State:
         if adaptive and s.time >= next_regrid:
             s, nt, dxb = apply_regrid(s, cfg)
             next_regrid += rgi
-        t0 = _time.perf_counter()
-        s = next_solution(s, nt, dxb)
-        if s.conserved.is_cuda:
-            torch.cuda.synchronize(s.conserved.device)
-        ms = (_time.perf_counter() - t0) * 1e3
+        s, perf = time_execution(next_solution, s, nt, dxb)
         schedule = mark_tasks(schedule, s.time, [("write_diagnostics", dfi)])
         if s.iteration % 50 == 0:
-            u = s.conserved
             driver.print_run_loop_message(
-                s.iteration, s.time, u.shape[0] * u.shape[1] * u.shape[2], ms)
+                s.iteration, s.time, s.conserved.numel(),
+                perf.execution_time_ms)
     return tasks(State(s, schedule), cfg)
 
 
@@ -387,7 +358,7 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     for the diagnostics; returns the final state. Raises
     driver.NonFiniteState if a write or the end finds the state not
     finite."""
-    if resolve_fast_step(cfg, state.solution.conserved.device):
+    if resolve_auto(cfg, "fast_step", state.solution.conserved.device):
         final = _run_fast(cfg, state, tasks)
     else:
         final = _run_per_step(cfg, state, tasks)

@@ -24,16 +24,16 @@ imported only by the functions that touch files.
 from __future__ import annotations
 
 import math
-import time as _time
 from dataclasses import dataclass, replace
 from typing import Mapping
 
 import numpy as np
 import torch
 
-from mara3_tpu_torch.app import driver, serialize
+from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
 from mara3_tpu_torch.app.device import resolve_device
+from mara3_tpu_torch.app.performance import timed_launch
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
 from mara3_tpu_torch.app.subprogram import register
 from mara3_tpu_torch.mesh import amr3d, euler3d, tree_nd
@@ -173,42 +173,42 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     the final state; raises driver.NonFiniteState if the state is not
     finite after a window, at a write or at the end, or its wavespeed at a
     window's start."""
+    rec = tracing.recorder()
     mesh = state.mesh
     s, schedule = state.solution, state.schedule
     bs = s.conserved.shape[1]
     cfl = cfg.get_double("cfl")
     dx_min = min_spacing(mesh, bs)
     advance = euler3d.make_advance(mesh, bs, GAMMA)
-    eps = 1e-12
     tfinal = cfg.get_double("tfinal")
     dfi = cfg.get_double("dfi")
     num_zones = s.conserved.shape[0] * bs ** 3
-    while s.time < tfinal - eps:
-        state = tasks(State(s, schedule, mesh), cfg)
-        s, schedule = state.solution, state.schedule
-        # dimension-split CFL from the current global max wavespeed
-        a = float(euler3d.max_signal_speed(s.conserved, GAMMA))
-        if not math.isfinite(a):
-            raise driver.NonFiniteState(
-                f"blast3d: the maximum wavespeed is {a} (a non-finite or "
-                f"non-physical state) at iteration {s.iteration}, t = "
-                f"{s.time!r}")
-        dt = cfl * dx_min / a / 3.0
-        n = max(1, int(math.ceil((tfinal - s.time) / dt - eps)))
-        nxt = schedule.last_performed("write_diagnostics") + dfi
-        if nxt > s.time + eps:
-            n = min(n, max(1, int(math.ceil((nxt - s.time) / dt - eps))))
-        t0 = _time.perf_counter()
-        u1 = advance(s.conserved, dt, n)
-        if u1.is_cuda:
-            torch.cuda.synchronize(u1.device)
-        ms = (_time.perf_counter() - t0) * 1e3
-        s = replace(s, iteration=s.iteration + n, time=s.time + n * dt,
-                    conserved=u1)
-        driver.check_finite("blast3d", [u1], s.iteration, s.time)
-        schedule = mark_tasks(schedule, s.time, [("write_diagnostics", dfi)])
-        print(f"[{s.iteration:04d}] t={s.time:3.7f} "
-              f"kzps={n * num_zones / max(ms, 1e-9):3.2f} [scheme[{n}]]")
+    while s.time < tfinal - driver.EPS:
+        with rec.span("mara3.chunk", iteration=s.iteration):
+            with driver.traced_outputs(rec, schedule):
+                state = tasks(State(s, schedule, mesh), cfg)
+            s, schedule = state.solution, state.schedule
+            with rec.span("mara3.plan"):
+                # dimension-split CFL from the current global max wavespeed
+                a = float(euler3d.max_signal_speed(s.conserved, GAMMA))
+                if not math.isfinite(a):
+                    raise driver.NonFiniteState(
+                        f"blast3d: the maximum wavespeed is {a} (a "
+                        f"non-finite or non-physical state) at iteration "
+                        f"{s.iteration}, t = {s.time!r}")
+                dt = cfl * dx_min / a / 3.0
+                n = driver.steps_to_next_stop(
+                    s.time, dt, tfinal,
+                    [schedule.last_performed("write_diagnostics") + dfi])
+            with timed_launch(rec, s.conserved.device) as launch:
+                u1 = advance(s.conserved, dt, n)
+            s = replace(s, iteration=s.iteration + n, time=s.time + n * dt,
+                        conserved=u1)
+            driver.check_finite("blast3d", [u1], s.iteration, s.time)
+            schedule = mark_tasks(schedule, s.time,
+                                  [("write_diagnostics", dfi)])
+            driver.end_chunk(rec, n, s.iteration, s.time, num_zones,
+                             launch.ms, f"scheme[{n}]")
     final = tasks(State(s, schedule, mesh), cfg)
     s = final.solution
     driver.check_finite("blast3d", [s.conserved], s.iteration, s.time)

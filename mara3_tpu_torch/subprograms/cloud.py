@@ -41,16 +41,16 @@ functions that touch files.
 from __future__ import annotations
 
 import math
-import time as _time
 from dataclasses import dataclass, replace
 from typing import Mapping
 
 import numpy as np
 import torch
 
-from mara3_tpu_torch.app import driver, serialize
+from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
-from mara3_tpu_torch.app.device import resolve_device
+from mara3_tpu_torch.app.device import resolve_auto, resolve_device
+from mara3_tpu_torch.app.performance import time_execution, timed_launch
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
 from mara3_tpu_torch.app.subprogram import register
 from mara3_tpu_torch.core import dimensional as dim
@@ -106,22 +106,6 @@ def config_template():
             # else 0), 0 one B4c or B4b call a step, 1 one B4d call a chunk
             .item("multi_launch", -1)
             .item("temperature_floor", 1e-8))
-
-
-def _auto(cfg_value: int, device) -> int:
-    return int(torch.device(device).type == "cuda") if cfg_value < 0 \
-        else cfg_value
-
-
-def resolve_fast_step(cfg, device) -> int:
-    """fast_step, with -1 resolved: 1 on a CUDA device, 0 on the CPU."""
-    return _auto(cfg.get_int("fast_step"), device)
-
-
-def resolve_multi_launch(cfg_value: int, device) -> int:
-    """multi_launch, with -1 resolved: 1 (B4d chunks) on a CUDA device, 0
-    on the CPU (the JAX package's -1 is 1 on a TPU backend)."""
-    return _auto(cfg_value, device)
 
 
 # -----------------------------------------------------------------------------
@@ -795,8 +779,8 @@ def setup(argv, *, device=None, dtype=None):
         where = f"CUDA kernel B4 on {torch.cuda.get_device_name(device)}"
     else:
         where = "the scheme (torch ops) on the CPU"
-    fast = resolve_fast_step(cfg, device)
-    multi = resolve_multi_launch(cfg.get_int("multi_launch"), device)
+    fast = resolve_auto(cfg, "fast_step", device)
+    multi = resolve_auto(cfg, "multi_launch", device)
     loop = ("chunked loop" + (", one B4d call a chunk"
                               if multi and device.type == "cuda" else "")
             if fast else "per-step loop")
@@ -812,6 +796,7 @@ def _run_fast(cfg, state: State, tasks) -> State:
     each chunk (64, 16, 4 or 1 steps) is planned to land on the next task
     due or tfinal, and is one advance_n call; the time is a float64 host
     number, advanced by n dt a chunk."""
+    rec = tracing.recorder()
     s = state.solution
     schedule = state.schedule
     dt = grid_dt(s, cfg)
@@ -821,8 +806,7 @@ def _run_fast(cfg, state: State, tasks) -> State:
     intervals = _intervals(cfg)
     rv, qv = s.radial_vertices, s.polar_vertices
     jet = jet_static(cfg)
-    multi = resolve_multi_launch(cfg.get_int("multi_launch"),
-                                 s.conserved.device) != 0
+    multi = resolve_auto(cfg, "multi_launch", s.conserved.device) != 0
     us = s.conserved.permute(2, 0, 1).contiguous()
     pz = s.pressure if s.pressure is not None else torch.zeros_like(us[0])
     t, it = float(s.time), int(s.iteration)
@@ -833,28 +817,24 @@ def _run_fast(cfg, state: State, tasks) -> State:
                        conserved=us.permute(1, 2, 0).contiguous(),
                        pressure=pz)
 
-    eps = 1e-12
-    while t < tfinal - eps:
-        n_cap = max(1, int(math.ceil((tfinal - t) / dt - eps)))
-        for name, ivl in intervals:
-            nxt = schedule.last_performed(name) + ivl
-            if nxt > t + eps:
-                n_cap = min(n_cap, max(1, int(math.ceil(
-                    (nxt - t) / dt - eps))))
-        n = next(c for c in CHUNKS if c <= n_cap)
-        t0 = _time.perf_counter()
-        us, pz = advance_n(us, pz, t, n, rv, qv, jet, dt, theta, method,
-                           tfloor, rk, multi=multi)
-        if us.is_cuda:
-            torch.cuda.synchronize(us.device)
-        ms = (_time.perf_counter() - t0) * 1e3
-        t += n * dt
-        it += n
-        schedule = mark_tasks(schedule, t, intervals)
-        if any(schedule.is_due(name) for name, _ in intervals):
-            schedule = tasks(State(solution(), schedule), cfg).schedule
-        print(f"[{it:04d}] t={t:3.7f} kzps={n * nzones / max(ms, 1e-9):3.2f} "
-              f"[{LAST_PATH}]")
+    while t < tfinal - driver.EPS:
+        with rec.span("mara3.chunk", iteration=it):
+            with rec.span("mara3.plan"):
+                n_cap = driver.steps_to_next_stop(
+                    t, dt, tfinal, [schedule.last_performed(name) + ivl
+                                    for name, ivl in intervals])
+                n = next(c for c in CHUNKS if c <= n_cap)
+            with timed_launch(rec, us.device) as launch:
+                us, pz = advance_n(us, pz, t, n, rv, qv, jet, dt, theta,
+                                   method, tfloor, rk, multi=multi)
+            t += n * dt
+            it += n
+            schedule = mark_tasks(schedule, t, intervals)
+            with driver.traced_outputs(rec, schedule) as due:
+                if due:
+                    schedule = tasks(State(solution(), schedule),
+                                     cfg).schedule
+            driver.end_chunk(rec, n, it, t, nzones, launch.ms, LAST_PATH)
     return tasks(State(solution(), mark_tasks(schedule, t, intervals)), cfg)
 
 
@@ -872,13 +852,11 @@ def _run_per_step(cfg, state: State, tasks) -> State:
 
     tfinal = cfg.get_double("tfinal")
     while state.solution.time < tfinal:
-        t0 = _time.perf_counter()
-        state = tasks(next_state(state), cfg)
-        if state.solution.conserved.is_cuda:
-            torch.cuda.synchronize(state.solution.conserved.device)
-        ms = (_time.perf_counter() - t0) * 1e3
+        state, perf = time_execution(lambda st: tasks(next_state(st), cfg),
+                                     state)
         s = state.solution
-        driver.print_run_loop_message(s.iteration, s.time, nzones, ms)
+        driver.print_run_loop_message(s.iteration, s.time, nzones,
+                                      perf.execution_time_ms)
     return tasks(next_state(state), cfg)
 
 
@@ -888,7 +866,7 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     the final state. Raises driver.NonFiniteState if a write or the end
     finds the state not finite."""
     state = tasks(state, cfg)
-    if resolve_fast_step(cfg, state.solution.conserved.device):
+    if resolve_auto(cfg, "fast_step", state.solution.conserved.device):
         final = _run_fast(cfg, state, tasks)
     else:
         final = _run_per_step(cfg, state, tasks)

@@ -42,16 +42,16 @@ The run's device is the CUDA card unless the caller asks for the CPU
 from __future__ import annotations
 
 import math
-import time as _time
 from dataclasses import dataclass, replace
 from typing import Mapping
 
 import numpy as np
 import torch
 
-from mara3_tpu_torch.app import driver, serialize
+from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
 from mara3_tpu_torch.app.device import resolve_device
+from mara3_tpu_torch.app.performance import timed_launch
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
 from mara3_tpu_torch.app.subprogram import register
 from mara3_tpu_torch.schemes import iso2d_grid
@@ -463,6 +463,7 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     grains of G steps and is one call of the sharded advance. Prints kzps
     per chunk; returns the final state. Raises driver.NonFiniteState if a
     write or the end finds the state not finite."""
+    rec = tracing.recorder()
     s = state.solution
     n = cfg.get_int("N")
     kw = advance_kwargs(cfg, s.dt)
@@ -471,39 +472,38 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     intervals = [("write_checkpoint", cfg.get_double("cpi")),
                  ("write_diagnostics", cfg.get_double("dfi")),
                  ("write_time_series", cfg.get_double("tsi"))]
-    eps = 1e-12
     tfinal = cfg.get_double("tfinal")
-    while state.solution.time < tfinal - eps:
-        state = tasks(state, cfg)
-        s = state.solution
-        n_run = max(1, int(math.ceil((tfinal - s.time) / s.dt - eps)))
-        for name, interval in intervals:
-            due = state.schedule.last_performed(name) + interval
-            if due > s.time + eps:
-                n_run = min(n_run, max(1, int(math.ceil(
-                    (due - s.time) / s.dt - eps))))
-        t0 = _time.perf_counter()
-        if sharded is None:
-            u1 = advance_n(s.conserved, n_run, **kw)
-        else:
-            # the sharded kernel advances in grain-sized groups; rounding
-            # up keeps 'first time >= due' (tasks fire at the next loop
-            # top, like a fixed-dt overshoot), as in the JAX package
-            advance, devices, grain = sharded
-            n_run = grain * math.ceil(n_run / grain)
-            u1 = advance_sharded(s.conserved, n_run, advance, devices)
-        if u1.is_cuda:
-            torch.cuda.synchronize(u1.device)
-        ms = (_time.perf_counter() - t0) * 1e3
-        s = replace(s, iteration=s.iteration + n_run,
-                    time=s.time + n_run * s.dt, conserved=u1)
-        # a chunk planned to end on a due time can end a round-off short of
-        # it (512 steps of dt = 0.3 / 2048 / 1.5 end at 0.05 - 7e-18), so
-        # tasks are marked due within the planner's eps; marked at s.time,
-        # as the JAX package marks them, that output would be skipped
-        state = State(s, mark_tasks(state.schedule, s.time + eps, intervals))
-        print(f"[{s.iteration:04d}] t={s.time:3.7f} "
-              f"kzps={n_run * n * n / max(ms, 1e-9):3.2f} [{LAST_PATH}]")
+    while state.solution.time < tfinal - driver.EPS:
+        with rec.span("mara3.chunk", iteration=state.solution.iteration):
+            with driver.traced_outputs(rec, state.schedule):
+                state = tasks(state, cfg)
+            s = state.solution
+            with rec.span("mara3.plan"):
+                n_run = driver.steps_to_next_stop(
+                    s.time, s.dt, tfinal,
+                    [state.schedule.last_performed(name) + interval
+                     for name, interval in intervals])
+                if sharded is not None:
+                    # whole grains; rounding up keeps 'first time >= due'
+                    # (tasks fire at the next loop top), as in the JAX package
+                    advance, devices, grain = sharded
+                    n_run = grain * math.ceil(n_run / grain)
+            with timed_launch(rec, s.conserved.device) as launch:
+                if sharded is None:
+                    u1 = advance_n(s.conserved, n_run, **kw)
+                else:
+                    u1 = advance_sharded(s.conserved, n_run, advance,
+                                         devices)
+            s = replace(s, iteration=s.iteration + n_run,
+                        time=s.time + n_run * s.dt, conserved=u1)
+            # a chunk planned onto a due can end a round-off short of it
+            # (512 steps of dt = 0.3 / 2048 / 1.5 end at 0.05 - 7e-18), so
+            # tasks are marked within EPS; marked at s.time, as the JAX
+            # package marks them, that output would be skipped
+            state = State(s, mark_tasks(state.schedule, s.time + driver.EPS,
+                                        intervals))
+            driver.end_chunk(rec, n_run, s.iteration, s.time, n * n,
+                             launch.ms, LAST_PATH)
     final = tasks(state, cfg)
     s = final.solution
     driver.check_finite("kh", [s.conserved], s.iteration, s.time)

@@ -25,16 +25,15 @@ that touch files.
 
 from __future__ import annotations
 
-import math
-import time as _time
 from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
-from mara3_tpu_torch.app import driver, serialize
+from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
 from mara3_tpu_torch.app.device import resolve_device
+from mara3_tpu_torch.app.performance import timed_launch
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
 from mara3_tpu_torch.app.subprogram import register
 from mara3_tpu_torch.kernels import sand3d_step
@@ -206,33 +205,33 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     `tasks(state, cfg)` writes the diagnostics. Returns the final state;
     raises driver.NonFiniteState if a write or the end finds the state not
     finite."""
+    rec = tracing.recorder()
     mesh = state.mesh
     s, schedule = state.solution, state.schedule
     bs = s.conserved.shape[1]
     dt = time_step(mesh, bs)
     advance = make_advance_auto(mesh, bs, VELOCITY, cfg.get_int("kernel"),
                                 s.conserved.device)
-    eps = 1e-12
     tfinal = cfg.get_double("tfinal")
     dfi = cfg.get_double("dfi")
     num_zones = s.conserved.numel()
-    while s.time < tfinal - eps:
-        state = tasks(State(s, schedule, mesh), cfg)
-        s, schedule = state.solution, state.schedule
-        n = max(1, int(math.ceil((tfinal - s.time) / dt - eps)))
-        nxt = schedule.last_performed("write_diagnostics") + dfi
-        if nxt > s.time + eps:
-            n = min(n, max(1, int(math.ceil((nxt - s.time) / dt - eps))))
-        t0 = _time.perf_counter()
-        u1 = advance(s.conserved, dt, n)
-        if u1.is_cuda:
-            torch.cuda.synchronize(u1.device)
-        ms = (_time.perf_counter() - t0) * 1e3
-        s = replace(s, iteration=s.iteration + n, time=s.time + n * dt,
-                    conserved=u1)
-        schedule = mark_tasks(schedule, s.time, [("write_diagnostics", dfi)])
-        print(f"[{s.iteration:04d}] t={s.time:3.7f} "
-              f"kzps={n * num_zones / max(ms, 1e-9):3.2f} [{LAST_PATH}]")
+    while s.time < tfinal - driver.EPS:
+        with rec.span("mara3.chunk", iteration=s.iteration):
+            with driver.traced_outputs(rec, schedule):
+                state = tasks(State(s, schedule, mesh), cfg)
+            s, schedule = state.solution, state.schedule
+            with rec.span("mara3.plan"):
+                n = driver.steps_to_next_stop(
+                    s.time, dt, tfinal,
+                    [schedule.last_performed("write_diagnostics") + dfi])
+            with timed_launch(rec, s.conserved.device) as launch:
+                u1 = advance(s.conserved, dt, n)
+            s = replace(s, iteration=s.iteration + n, time=s.time + n * dt,
+                        conserved=u1)
+            schedule = mark_tasks(schedule, s.time,
+                                  [("write_diagnostics", dfi)])
+            driver.end_chunk(rec, n, s.iteration, s.time, num_zones,
+                             launch.ms, LAST_PATH)
     final = tasks(State(s, schedule, mesh), cfg)
     s = final.solution
     driver.check_finite("sand3d", [s.conserved], s.iteration, s.time)

@@ -33,7 +33,6 @@ by the functions that touch files.
 from __future__ import annotations
 
 import math
-import time as _time
 from dataclasses import dataclass, replace
 from typing import Mapping
 
@@ -42,7 +41,8 @@ import torch
 
 from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
-from mara3_tpu_torch.app.device import resolve_device
+from mara3_tpu_torch.app.device import resolve_auto, resolve_device
+from mara3_tpu_torch.app.performance import time_execution, timed_launch
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
 from mara3_tpu_torch.app.subprogram import register
 from mara3_tpu_torch.core import ops
@@ -496,12 +496,6 @@ def _intervals(cfg):
             ("write_time_series", cfg.get_double("tsi"))]
 
 
-def resolve_fast_step(cfg, device) -> int:
-    """fast_step, with -1 resolved: 1 on a CUDA device, 0 on the CPU."""
-    fast = cfg.get_int("fast_step")
-    return int(torch.device(device).type == "cuda") if fast < 0 else fast
-
-
 def setup(argv, *, device=None, dtype=None):
     """Config and initial state (solution and schedule) of a run, with the
     banner; writes no file. Returns (cfg, state)."""
@@ -515,7 +509,7 @@ def setup(argv, *, device=None, dtype=None):
     system = system_name(hydro_system(cfg))
     where = (f"CUDA kernel B5 on {torch.cuda.get_device_name(device)}"
              if device.type == "cuda" else "the scheme (torch ops) on the CPU")
-    loop = "chunked" if resolve_fast_step(cfg, device) else "per-step"
+    loop = "chunked" if resolve_auto(cfg, "fast_step", device) else "per-step"
     print(f"advance: {where}, {system} "
           f"{cfg.get_string('reconstruct_method')}, "
           f"{str(solution.conserved.dtype).replace('torch.', '')}, the "
@@ -538,41 +532,25 @@ def _run_fast(cfg, state: State, tasks) -> State:
     intervals = _intervals(cfg)
     u, t, it = s.conserved, float(s.time), int(s.iteration)
     nz = u.shape[0]
-    eps = 1e-12
-    while t < tfinal - eps:
+    while t < tfinal - driver.EPS:
         with rec.span("mara3.chunk", iteration=it):
             with rec.span("mara3.plan"):
-                n_cap = max(1, int(math.ceil((tfinal - t) / dt - eps)))
-                for name, ivl in intervals:
-                    nxt = schedule.last_performed(name) + ivl
-                    if nxt > t + eps:
-                        n_cap = min(n_cap, max(1, int(math.ceil(
-                            (nxt - t) / dt - eps))))
+                n_cap = driver.steps_to_next_stop(
+                    t, dt, tfinal, [schedule.last_performed(name) + ivl
+                                    for name, ivl in intervals])
                 n = next(c for c in CHUNKS if c <= n_cap)
-            t0 = _time.perf_counter()
-            with rec.span("mara3.launch"):
+            with timed_launch(rec, u.device) as launch:
                 u = advance_n(u, s.vertices, dt, newtonian, n, method,
                               theta)
-            with rec.span("mara3.wait"):
-                if u.is_cuda:
-                    torch.cuda.synchronize(u.device)
-            ms = (_time.perf_counter() - t0) * 1e3
             t += n * dt
             it += n
-            rec.count("steps", n)
-            rec.annotate(steps=n)
             schedule = mark_tasks(schedule, t, intervals)
-            due = [name for name, _ in intervals if schedule.is_due(name)]
-            if due:
-                for name in due:
-                    rec.count(f"outputs.{name}")
-                with rec.span("mara3.output", task="+".join(due)):
-                    st = tasks(State(replace(s, time=t, iteration=it,
-                                             conserved=u), schedule), cfg)
-                schedule = st.schedule
-            with rec.span("mara3.print"):
-                print(f"[{it:04d}] t={t:3.7f} "
-                      f"kzps={n * nz / max(ms, 1e-9):3.2f} [{LAST_PATH}]")
+            with driver.traced_outputs(rec, schedule) as due:
+                if due:
+                    schedule = tasks(State(replace(s, time=t, iteration=it,
+                                                   conserved=u), schedule),
+                                     cfg).schedule
+            driver.end_chunk(rec, n, it, t, nz, launch.ms, LAST_PATH)
     final = State(replace(s, time=t, iteration=it, conserved=u),
                   mark_tasks(schedule, t, intervals))
     return tasks(final, cfg)
@@ -592,15 +570,13 @@ def _run_per_step(cfg, state: State, tasks) -> State:
 
     tfinal = cfg.get_double("tfinal")
     while state.solution.time < tfinal:
-        t0 = _time.perf_counter()
-        state = tasks(next_state(state), cfg)
-        if state.solution.conserved.is_cuda:
-            torch.cuda.synchronize(state.solution.conserved.device)
-        ms = (_time.perf_counter() - t0) * 1e3
+        state, perf = time_execution(lambda st: tasks(next_state(st), cfg),
+                                     state)
         s = state.solution
         if s.iteration % 100 == 0:
             driver.print_run_loop_message(s.iteration, s.time,
-                                          s.conserved.shape[0], ms)
+                                          s.conserved.shape[0],
+                                          perf.execution_time_ms)
     return tasks(next_state(state), cfg)
 
 
@@ -610,7 +586,7 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     series; returns the final state. Raises driver.NonFiniteState if a
     write or the end finds the state not finite."""
     state = tasks(state, cfg)
-    if resolve_fast_step(cfg, state.solution.conserved.device):
+    if resolve_auto(cfg, "fast_step", state.solution.conserved.device):
         final = _run_fast(cfg, state, tasks)
     else:
         final = _run_per_step(cfg, state, tasks)

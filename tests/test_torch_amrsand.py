@@ -17,6 +17,7 @@ from jax.experimental.pallas import tpu as pltpu
 from mara3_tpu.kernels import amrsand_step as J6
 from mara3_tpu.mesh import block_layout as JB
 from mara3_tpu.subprograms import amrsand as JA
+from mara3_tpu_torch.app.device import resolve_auto
 from mara3_tpu_torch.app.driver import NonFiniteState
 from mara3_tpu_torch.kernels import amrsand_step as T6
 from mara3_tpu_torch.mesh import block_layout as TB
@@ -240,9 +241,9 @@ def test_non_finite_state_raises(tmp_path, fast_step):
 
 def test_fast_step_resolves_by_device():
     cfg = TA.config_template().create()
-    assert TA.resolve_fast_step(cfg, "cpu") == 0
-    assert TA.resolve_fast_step(cfg, "cuda") == 1
-    assert TA.resolve_fast_step(cfg.update({"fast_step": 1}), "cpu") == 1
+    assert resolve_auto(cfg, "fast_step", "cpu") == 0
+    assert resolve_auto(cfg, "fast_step", "cuda") == 1
+    assert resolve_auto(cfg.update({"fast_step": 1}), "fast_step", "cpu") == 1
 
 
 def test_registered_with_the_cli():

@@ -1,6 +1,7 @@
 """The port's tracer (mara3_tpu_torch/app/tracing.py) and the spans and
-counters of its two fast driver loops, on the CPU at depth 3 / block 16
-with fast_step=1.
+counters of its fast driver loops, on the CPU with fast_step=1: binary's
+and amrsand's at depth 3 / block 16, and tiny runs of the fixed-dt loops
+of kh, cloud, sand3d and blast3d.
 
 - With no profiler running, a run records nothing and never opens a
   profiler range.
@@ -31,6 +32,7 @@ from mara3_tpu_torch.app import subprogram, tracing
 from mara3_tpu_torch.app.device import DEVICE_SELECTOR
 from mara3_tpu_torch.subprograms import amrsand as TA
 from mara3_tpu_torch.subprograms import binary as TB
+from mara3_tpu_torch.subprograms import blast3d, cloud, kh, sand3d
 
 torch.set_num_threads(1)
 
@@ -44,6 +46,21 @@ AMRSAND = ["amrsand", "depth=3", "block_size=16", "fast_step=1",
            "tfinal=0.25", "dfi=0.1"]
 REGRID = {"binary": ["regrid=1", "rgi=0.02"],
           "amrsand": ["regrid=1", "rgi=0.05"]}
+# the other fixed-dt loops, each with tfinal off every due so that the
+# tasks write nothing after the loop; cloud runs its loop after its first
+# tasks, as sedov's tests run sedov's
+FIXED_DT = {
+    "kh": (kh, ["kh", "N=32", "precision=f64", "tfinal=0.055", "cpi=0.02",
+                "dfi=0.04", "tsi=0.01"]),
+    # dt = 0.0403: a row every 3 steps
+    "cloud": (cloud, ["cloud", "nr=24", "fast_step=1", "tfinal=0.65",
+                      "cpi=0.5", "tsi=0.1", "dfi=0.25"]),
+    "sand3d": (sand3d, ["sand3d", "depth=3", "block_size=8", "tfinal=0.11",
+                        "dfi=0.04"]),
+    "blast3d": (blast3d, ["blast3d", "depth=2", "block_size=4",
+                          "tfinal=0.07", "dfi=0.02"]),
+}
+PROGRAMS = ["binary", "amrsand", *FIXED_DT]
 
 
 @pytest.fixture(autouse=True)
@@ -56,12 +73,16 @@ def empty_store():
 class Run:
     """One run of a fast driver loop from setup, its standard output kept
     and the program's own outputs counted by its task runner: the rows it
-    recorded, the diagnostics it wrote, the scan's replayed steps and the
-    regrids."""
+    recorded, the outputs it wrote (by task), the scan's replayed steps and
+    the regrids."""
 
     def __init__(self, monkeypatch, program: str, extra=(), kernel=False):
-        self.program, self.rows_by_runner, self.writes = program, 0, 0
-        self.replayed, self.regrids = [], 0
+        from collections import Counter
+        self.program, self.rows_by_runner = program, 0
+        self.writes, self.replayed, self.regrids = Counter(), [], 0
+        if program in FIXED_DT:
+            self.argv = FIXED_DT[program][1] + list(extra)
+            return
         module = TB if program == "binary" else TA
         regrid = module.apply_regrid
 
@@ -104,12 +125,14 @@ class Run:
             st = TB.record_time_series(st, sd)
         return st
 
-    def amrsand_tasks(self, st, cfg):
-        if st.schedule.is_due("write_diagnostics"):
-            self.writes += 1
-            st = replace(st, schedule=st.schedule.mark_as_completed(
-                "write_diagnostics"))
-        return st
+    def tasks(self, st, cfg):
+        """Every due task marked done, and counted, without its file."""
+        schedule = st.schedule
+        for task in schedule:
+            if task.is_due:
+                self.writes[task.name] += 1
+                schedule = schedule.mark_as_completed(task.name)
+        return replace(st, schedule=schedule)
 
     def __call__(self):
         out = io.StringIO()
@@ -119,10 +142,22 @@ class Run:
                 self.start = state.solution.iteration
                 final = TB.run(cfg, sd, state, tasks=self.binary_tasks)
                 self.rows = len(final.time_series) - len(state.time_series)
-            else:
+            elif self.program == "amrsand":
                 cfg, state = TA.setup(self.argv, device="cpu", dtype=F64)
                 self.start = state.solution.iteration
-                final = TA.run(cfg, state, tasks=self.amrsand_tasks)
+                final = TA.run(cfg, state, tasks=self.tasks)
+            elif self.program == "cloud":
+                cfg, state = cloud.setup(self.argv, device="cpu", dtype=F64)
+                state = self.tasks(state, cfg)
+                self.writes.clear()
+                self.start = state.solution.iteration
+                final = cloud._run_fast(cfg, state, self.tasks)
+            else:
+                module = FIXED_DT[self.program][0]
+                kw = {} if module is kh else {"dtype": F64}
+                cfg, state = module.setup(self.argv, device="cpu", **kw)
+                self.start = state.solution.iteration
+                final = module.run(cfg, state, tasks=self.tasks)
         self.final = final
         self.lines = out.getvalue().splitlines()
         self.progress = [int(m.group(1)) for m in map(PROGRESS.match,
@@ -145,7 +180,7 @@ def traced(run: Run):
     return tracing.spans(), tracing.counts(), set(events), events
 
 
-@pytest.mark.parametrize("program", ["binary", "amrsand"])
+@pytest.mark.parametrize("program", PROGRAMS)
 def test_untraced_run_records_nothing(monkeypatch, program):
     entered = []
 
@@ -185,7 +220,7 @@ def _check_tree(spans):
             assert len(waits) == 1
 
 
-@pytest.mark.parametrize("program", ["binary", "amrsand"])
+@pytest.mark.parametrize("program", PROGRAMS)
 def test_traced_run_counts_what_the_loop_did(monkeypatch, program):
     run = Run(monkeypatch, program)
     spans, counts, names, _ = traced(run)
@@ -209,9 +244,16 @@ def test_traced_run_counts_what_the_loop_did(monkeypatch, program):
         assert counts["table_builds"] == 1
         assert {"mara3.replay", "mara3.sample", "mara3.repair",
                 "mara3.mark", "mara3.tables"} <= {s.name for s in spans}
-    else:
+    elif program == "amrsand":
         assert len(outputs) == counts["outputs.write_diagnostics"] \
-            == run.writes == 3
+            == run.writes["write_diagnostics"] == 3
+    else:
+        assert {k: v for k, v in counts.items()
+                if k.startswith("outputs.")} == {
+            f"outputs.{task}": n for task, n in run.writes.items()}
+        assert sum(run.writes.values()) >= len(outputs) > 1
+        assert sum(len(s.attrs["task"].split("+")) for s in outputs) == \
+            sum(run.writes.values())
     assert {s.name for s in spans} <= names
     assert {"mara3.chunk", "mara3.plan", "mara3.launch", "mara3.wait",
             "mara3.output", "mara3.print"} <= names
