@@ -31,49 +31,65 @@
 // caller's stream. Each phase is its own kernel with its own
 // __launch_bounds__, so the registers of the face flux, of the update's
 // float64 accumulators and of the scalar code do not add up in one kernel,
-// and each sweep runs at its own occupancy. The sweeps take one CTA a 2D
-// tile of a block (Tile<T>, clipped at the block's edges), a warp a row of
-// it, and hold the tile and its one-cell ring (no corner cells: no stencil
-// is diagonal) in shared memory. Per stage:
-//   b3_sweep1     recovery and the limited slopes: each cell of the tile
-//                 and its ring recovered once (the cells of the next tile,
-//                 or the guard cells through the ring table: a copy, the
-//                 matching half-cell, or the 2x2 mean of four recovered
-//                 finer cells in neighbor_values' order), so a guard cell
-//                 carries the bits it would have from the stored p; writes
-//                 p and g, and at stage 1 the tile's CFL minimum.
+// and each sweep runs at its own occupancy. Per stage:
+//   b3_sweep1     recovery and the limited slopes, one CTA a 2D tile of a
+//                 block (Tile<T>, clipped at the block's edges), a warp a
+//                 row of it, the tile and its one-cell ring (no corner
+//                 cells: no stencil is diagonal) in shared memory: each
+//                 cell of the tile and its ring recovered once (the cells
+//                 of the next tile, or the guard cells through the ring
+//                 table: a copy, the matching half-cell, or the 2x2 mean of
+//                 four recovered finer cells in neighbor_values' order), so
+//                 a guard cell carries the bits it would have from the
+//                 stored p; writes p and g, and at stage 1 the tile's CFL
+//                 minimum.
 //   b3_dt         at stage 1 with the CFL dt: the min of the tiles' minima
 //                 into dyn, before sweep 2 reads it.
-//   b3_sweep2     faces and update: p and g of the tile and its ring into
-//                 shared memory, every x- and y-face flux of the tile once
-//                 into shared memory, then the update of each cell, the new
-//                 state and the tile's float64 partial totals. A block face
-//                 where two finer neighbours meet it takes the sum of their
-//                 two edge-face fluxes (restricted_flux's sum), recomputed
-//                 here from their p and g: the same inputs as the finer
-//                 block's own, so the same bits, and fx and fy never reach
-//                 device memory. Level jumps lie only on block edges,
-//                 never on a tile edge inside a block; the finer
-//                 neighbour's faces are read from device memory, so they
-//                 may straddle the coarse block's tiles.
-//   b3_stage_end  one CTA: the totals, each thread summing its tiles'
+//   b3_sweep2     faces and update, a persistent march: as many CTAs as
+//                 the card holds at once (one wave), each claiming pieces
+//                 of the mesh (up to kMarchRows rows of a block's 32-column
+//                 strip) one after another; a piece's p and g and their
+//                 one-cell ring (the next cells of the block, or the guard
+//                 cells through the ring table) into shared memory with
+//                 cp.async, then every x- and y-face flux of the piece once
+//                 into shared memory, the update of each cell, the new
+//                 state and the piece's float64 partial totals. A block
+//                 face where two finer neighbours meet it takes the sum of
+//                 their two edge-face fluxes (restricted_flux's sum),
+//                 recomputed here from their p and g: the same inputs as
+//                 the finer block's own, so the same bits, and fx and fy
+//                 never reach device memory.
+//   b3_stage_end  one CTA: the totals, each thread summing its pieces'
 //                 partials and block_sum the threads' in a fixed order;
 //                 then in one thread the work done, the row, the element
 //                 update and the next stage's bodies into dyn.
 // plus b3_init once a call. So a step takes 4 launches at rk_order 1 (3
-// with a fixed dt), 7 at rk_order 2. The host-side geometry (the tiles, the
-// ring's sources, the finer neighbours' faces) is built in
-// kernels/binary_multi.py (tile_plan) and passed as tables. The sweeps
-// stage each warp's row of outputs in shared memory, so its stores to the
-// [.., 3] and [.., 6] arrays are contiguous. Where a block's spacing is a
-// power of two (the flagship's meshes), sweep 1 divides the slopes by it
-// as a product with its exact inverse.
+// with a fixed dt), 7 at rk_order 2. The host-side geometry (sweep 1's
+// tiles, sweep 2's pieces, the ring's sources, the finer neighbours'
+// faces) is built in kernels/binary_multi.py (tile_plan) and passed as
+// tables. The sweeps stage each warp's row of outputs in shared memory, so
+// its stores to the [.., 3] and [.., 6] arrays are contiguous. Where a
+// block's spacing is a power of two (the flagship's meshes), sweep 1
+// divides the slopes by it as a product with its exact inverse.
 //
-// Deterministic: every sum is of per-CTA float64 partials in a fixed
-// order; the CFL reduce is a min, whose order does not matter. No atomics,
-// so two calls on the same input give the same bits. Built with
-// --fmad=false like B2. binary_advance_core.cuh is included and not
-// edited, so B2, B11b and B11c keep their bits.
+// Why sweep 2 marches: the earlier design, one CTA a 32 x 32 tile, took
+// 5.20 ms of a 16-step call at d6b96 float32 (NVIDIA H100 80GB HBM3 at
+// 700 W). Its 1,224 tiles at 3 CTAs an SM ran in four waves, the last of
+// 36 CTAs. A march over even shares fixed in advance took 5.7-5.9 ms:
+// the strips along finer neighbours cost more, and the slowest share set
+// the time. So the CTAs claim their pieces as they go, and no CTA runs
+// more than one piece past the others. Loads requested for the next piece
+// while the piece before it computed (cp.async) were timed too and gained
+// nothing beyond the runs' spread: the march is bound by its arithmetic.
+// A box loaded through registers (plain loads, then stores to shared
+// memory) took 5.07 ms; with cp.async, which holds no register, 4.2-4.3.
+//
+// Deterministic: every sum is of per-tile or per-piece float64 partials
+// in a fixed order, whichever CTA computed a piece; the CFL reduce is a
+// min, whose order does not matter. No atomics in any sum (they only hand
+// out sweep 2's pieces), so two calls on the same input give the same
+// bits. Built with --fmad=false like B2. binary_advance_core.cuh is
+// included and not edited, so B2, B11b and B11c keep their bits.
 
 #include "binary_advance_core.cuh"
 
@@ -97,11 +113,10 @@ constexpr double kTwoPi = 6.283185307179586;
 constexpr int kCarryT = 0, kCarryT2 = 1, kCarryE = 2, kCarryE1 = 12;
 
 // The CTAs an SM that each sweep's __launch_bounds__ asks registers for
-// (tools/torch_b3_variants.py times other values): sweep 2 at 2 spills
-// nothing but runs slower than at 3
+// (tools/torch_b3_variants.py times other values)
 constexpr int kSweep1Ctas = 4, kSweep2Ctas = 3;
 
-// the sweeps' tile: rows along i by columns along j, the state's fastest
+// sweep 1's tile: rows along i by columns along j, the state's fastest
 // index, one warp wide (kernels/binary_multi.TILE)
 template <typename T>
 struct Tile;
@@ -114,14 +129,11 @@ struct Tile<double> {
   static constexpr int I = 16, J = 32;
 };
 
-// sweep 2's shared memory: p [3][I+2][J+2], g [6][I+2][J+2], the x-face
-// fluxes [3][I+1][J], the y-face fluxes [3][I][J+1]
-template <typename T>
-constexpr int sweep2_smem() {
-  constexpr int I = Tile<T>::I, J = Tile<T>::J;
-  return (9 * (I + 2) * (J + 2) + 3 * (I + 1) * J + 3 * I * (J + 1))
-         * (int)sizeof(T);
-}
+// sweep 2's pieces: at most kMarchRows rows of a block's 32-column strip
+// (kernels/binary_multi.MARCH_ROWS; 15: a full piece's 2 kMarchRows + 2
+// rows of faces are four rounds of the kThreads / 32 warps; of 7, 15, 23
+// and 31 rows the fastest at d6b96 float32)
+constexpr int kMarchRows = 15;
 
 template <typename T>
 struct Args {
@@ -133,17 +145,19 @@ struct Args {
   const T* br;          // [B, bs, bs]
   const double* axes;   // [B, 6, bs+1]
   const double* spacing;  // [B]
-  const int* tiles;     // [n_tiles, 5] (block, i0, j0, ni, nj)
+  const int* tiles;     // [n_tiles, 5] (block, i0, j0, ni, nj), sweep 1's
   const int* ring;      // [B, 4, bs, 4] a guard cell's source cells
   const int* fine;      // [B, 4, bs, 2] a finer neighbour's two faces
-  double* partials;     // [n_tiles, kTotals]
+  const int* pieces;    // [n_pieces, 5] (block, i0, j0, ni, nj), sweep 2's
+  int* work;            // [k_steps * rk] the pieces claimed, a launch each
+  double* partials;     // [kTotals, n_pieces] sweep 2's
   double* totals;       // [kTotals] the stage's totals
   double* cfl_part;     // [n_tiles] sweep 1's CFL minima
   const double* start;  // t0, then the ten elements
   double* dyn;          // [kDynamic]: dt, theta, bodies of the stage
   double* carry;        // [22] the scalar state between stages
   double* rows;         // [k_steps * rk, kRows, kLanes]
-  int B, bs, n_tiles, k_steps, rk, no_acc_force, fixed;
+  int B, bs, n_tiles, n_pieces, n_ctas, k_steps, rk, no_acc_force, fixed;
   double cfl, fixed_dt, live_after;
   Params prm;
 };
@@ -374,7 +388,7 @@ __device__ double block_min(double v) {
   return r;
 }
 
-// ---- the sweeps: one CTA a tile --------------------------------------------
+// ---- sweep 1's tiles: one CTA a tile ---------------------------------------
 //
 // A tile's box is the tile and its one-cell ring: box cell (bi, bj) is the
 // block's cell (i0 + bi - 1, j0 + bj - 1). A warp takes rows of the box,
@@ -545,7 +559,87 @@ b3_dt_kernel(Args<T> a) {
   if (threadIdx.x == 0) a.dyn[0] = double(T(a.cfl) * T(m));
 }
 
-// ---- sweep 2: faces and update ---------------------------------------------
+// ---- sweep 2: faces and update, a persistent march --------------------------
+//
+// Sweep 2's unit of work is a piece: up to kMarchRows rows of a block's
+// strip of 32 columns (j0 = 0, 32, ...; clipped to nj = bs - j0
+// columns at the block's edge), in the pieces table (kernels/
+// binary_multi.tile_plan). As many CTAs as the card holds at once march
+// over the pieces, each claiming its next one as it starts the last.
+
+// piece k of the pieces table (as sweep 1's tiles: a block's rows [i0, i0
+// + ni) of its strip at j0, nj wide)
+__device__ __forceinline__ TileAt piece_of(const int* pieces, int k) {
+  const int* t = pieces + k * 5;
+  return TileAt{t[0], t[1], t[2], t[3], t[4]};
+}
+
+// The march's shared memory: a piece's box (the piece and its one-cell
+// ring, no corners: box cell (bi, bj) is the block's cell (i0 + bi - 1, j0
+// + bj - 1)) of p [3][I+2][J+2] and g [6][I+2][J+2]; the piece's x-face
+// fluxes [3][I+1][J] and y-face fluxes [3][I][J+1]; the pieces claimed; a
+// piece's totals.
+template <typename T>
+struct MarchSmem {
+  static constexpr int I = kMarchRows, J = 32;
+  static constexpr int BJ = J + 2, PS = (I + 2) * BJ;
+  T p[3 * PS];
+  T g[6 * PS];
+  T fx[3 * (I + 1) * J];
+  T fy[3 * I * (J + 1)];
+  int claim[2];            // by the claim's parity
+  double piece[kTotals];
+};
+
+// one value from device memory into shared memory, asynchronously (no
+// register holds it, so every load of a box is in flight at once)
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(d), "l"(src), "n"(sizeof(T)) : "memory");
+}
+
+// Piece t's box of p and g into shared memory, then this thread's wait for
+// its own copies: the piece's cells, a warp a row; the ring, a warp a
+// strip: the next cells of the block, or the guard cell's one source cell
+// through the ring table where a same or coarser neighbour lies (where
+// finer ones do, their faces are recomputed from device memory and the
+// guard cell is not read)
+template <typename T>
+__device__ void load_box(const Args<T>& a, MarchSmem<T>& sm,
+                         const TileAt& t) {
+  using Sm = MarchSmem<T>;
+  constexpr int BJ = Sm::BJ, PS = Sm::PS;
+  const int bs = a.bs, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int ci = warp; ci < t.ni && lane < t.nj; ci += kWarps) {
+    const long long cell = ((long long)t.b * bs + t.i0 + ci) * bs + t.j0
+                         + lane;
+    const int o = (ci + 1) * BJ + lane + 1;
+    for (int c = 0; c < 3; ++c)
+      copy_async(&sm.p[c * PS + o], a.p + cell * 3 + c);
+    for (int c = 0; c < 6; ++c)
+      copy_async(&sm.g[c * PS + o], a.g + cell * 6 + c);
+  }
+  int bi, bj;
+  if (warp < 4 && ring_cell(t, warp, lane, bi, bj)) {
+    const int i = t.i0 + bi - 1, j = t.j0 + bj - 1;
+    const int f = face_beyond(i, j, bs);
+    long long cell = ((long long)t.b * bs + i) * bs + j;
+    if (f >= 0) {
+      const int* s = ring_cells(a.ring, t.b, f, f < 2 ? j : i, bs);
+      cell = s[1] < 0 ? s[0] : -1;
+    }
+    if (cell >= 0) {
+      const int o = bi * BJ + bj;
+      for (int c = 0; c < 3; ++c)
+        copy_async(&sm.p[c * PS + o], a.p + cell * 3 + c);
+      for (int c = 0; c < 6; ++c)
+        copy_async(&sm.g[c * PS + o], a.g + cell * 6 + c);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
 // the two sides (primitives and slopes) of face (i, j) along `axis` of
 // block b from p and g in device memory, a side off the block from its
@@ -575,153 +669,160 @@ __device__ void face_sides(const Args<T>& a, int b, int axis, int i, int j,
 }
 
 // The update of src into dst (dst = 0.5 dst + 0.5 update when `average`,
-// the rk2 close) on the tile, with the tile's partial totals.
+// the rk2 close) on the pieces the CTA claims, with each piece's partial
+// totals.
+//
+// The CTA claims its next piece (work: an atomic count for this launch)
+// as it loads the box of the piece before it: so the card's CTAs march the
+// mesh in one wave, and a CTA whose pieces cost more (finer neighbours'
+// faces read from device memory) claims fewer of them. A piece takes three
+// barriers: its box into shared memory (load_box), then every face flux of
+// the piece once into shared memory, a warp a row of faces (its ni + 1
+// rows of x-faces, its ni rows of y-faces, then the y-faces of its column
+// 32 when it is 32 wide: 2 ni + 2 rows, so at kMarchRows = 15 four rounds
+// of the 8 warps), then the update of each cell, the new rows staged in
+// the slopes' space, which the faces are done with. A block face where two
+// finer neighbours meet it takes the sum of their two edge-face fluxes
+// (restricted_flux's sum), recomputed here from their p and g: the same
+// inputs as the finer block's own, so the same bits, and fx and fy never
+// reach device memory. Level jumps lie only on block edges, never on a
+// piece's edge inside a block; the finer neighbour's faces are read from
+// device memory, so they may straddle the coarse block's pieces. A piece's
+// totals go to partials[piece] whichever CTA computed it, so their sum's
+// order is fixed.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kSweep2Ctas)
-b3_sweep2_kernel(Args<T> a, const T* src, T* dst, int average) {
-  constexpr int TI = Tile<T>::I, TJ = Tile<T>::J;
-  constexpr int BJ = TJ + 2, PS = (TI + 2) * BJ;
+b3_sweep2_kernel(Args<T> a, const T* src, T* dst, int average, int launch) {
+  using Sm = MarchSmem<T>;
+  constexpr int TI = Sm::I, TJ = Sm::J, BJ = Sm::BJ, PS = Sm::PS;
   constexpr int XS = (TI + 1) * TJ, YS = TI * (TJ + 1);
   static_assert(TJ == 32 && TI <= 32,
-                "a tile row is a warp, a ring strip a warp");
+                "a piece row is a warp, a ring strip a warp");
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ps = reinterpret_cast<T*>(smem);   // [3][TI+2][TJ+2] the box's p
-  T* gs = ps + 3 * PS;                  // [6][TI+2][TJ+2] its g
-  T* fxs = gs + 6 * PS;                 // [3][TI+1][TJ] x-face fluxes
-  T* fys = fxs + 3 * XS;                // [3][TI][TJ+1] y-face fluxes
+  Sm& sm = *reinterpret_cast<Sm*>(smem);
+  T* ps = sm.p;
+  T* gs = sm.g;
+  T* fxs = sm.fx;
+  T* fys = sm.fy;
 
   Params prm = a.prm;
   load_dynamic(prm, a.dyn);
-  const TileAt t = tile_at(a.tiles);
-  const int b = t.b, bs = a.bs;
+  const int bs = a.bs;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  // p and g of the box: the tile's cells, then the ring (the next tile's
-  // cells, or the guard cells through the ring table)
-  for (int ci = warp; ci < t.ni; ci += kWarps) {
-    if (lane >= t.nj) continue;
-    const long long cell = ((long long)b * bs + t.i0 + ci) * bs + t.j0 + lane;
-    const int o = (ci + 1) * BJ + lane + 1;
-    for (int c = 0; c < 3; ++c) ps[c * PS + o] = a.p[cell * 3 + c];
-    for (int c = 0; c < 6; ++c) gs[c * PS + o] = a.g[cell * 6 + c];
-  }
-  int bi, bj;
-  if (warp < 4 && ring_cell(t, warp, lane, bi, bj)) {
-    const int i = t.i0 + bi - 1, j = t.j0 + bj - 1;
-    const int f = face_beyond(i, j, bs);
-    T P[3], G[6];
-    if (f >= 0) {
-      ring_value<T, 3>(a.p, a.ring, b, f, f < 2 ? j : i, bs, P);
-      ring_value<T, 6>(a.g, a.ring, b, f, f < 2 ? j : i, bs, G);
-    } else {
-      const long long cell = ((long long)b * bs + i) * bs + j;
-      for (int c = 0; c < 3; ++c) P[c] = a.p[cell * 3 + c];
-      for (int c = 0; c < 6; ++c) G[c] = a.g[cell * 6 + c];
-    }
-    const int o = bi * BJ + bj;
-    for (int c = 0; c < 3; ++c) ps[c * PS + o] = P[c];
-    for (int c = 0; c < 6; ++c) gs[c * PS + o] = G[c];
-  }
+  int* work = a.work + launch;
+  if (threadIdx.x == 0) sm.claim[0] = atomicAdd(work, 1);
   __syncthreads();
+  for (int k = 0, n = sm.claim[0]; n < a.n_pieces; ++k) {
+    const TileAt t = piece_of(a.pieces, n);
+    const int b = t.b;
+    // the previous piece is done with the box (block_sum's barriers)
+    load_box(a, sm, t);
+    if (threadIdx.x == 0) sm.claim[(k + 1) & 1] = atomicAdd(work, 1);
+    __syncthreads();
+    const int next = sm.claim[(k + 1) & 1];
 
-  // every face of the tile once, a warp a row of faces: the ni + 1 rows of
-  // x-faces, the ni rows of y-faces, then the y-faces of column TJ (a
-  // column, when the tile is TJ wide)
-  const int xrows = t.ni + 1, yrows = t.ni;
-  const int rows = xrows + yrows + (t.nj == TJ ? 1 : 0);
-  for (int row = warp; row < rows; row += kWarps) {
-    int axis, fi, fj;
-    if (row < xrows) {
-      axis = 0, fi = row, fj = lane;
-      if (fj >= t.nj) continue;
-    } else if (row < xrows + yrows) {
-      axis = 1, fi = row - xrows, fj = lane;
-      if (fj > t.nj) continue;
-    } else {
-      axis = 1, fi = lane, fj = TJ;
-      if (fi >= t.ni) continue;
-    }
-    const int i = t.i0 + fi, j = t.j0 + fj;   // the face's index in the block
-    const int kk = axis == 0 ? i : j;
-    const int edge = kk == 0 ? 2 * axis : kk == bs ? 2 * axis + 1 : -1;
-    const int pos = axis == 0 ? j : i;
-    const int* fine = edge < 0 ? nullptr
-        : a.fine + (((long long)b * 4 + edge) * bs + pos) * 2;
-    const int parts = fine != nullptr && fine[0] >= 0 ? 2 : 1;
-    const int lo = axis == 0 ? 0 : 3, tr = axis == 0 ? 3 : 0;
-    T F[3];
-    for (int h = 0; h < parts; ++h) {
-      T pl[3], pr[3], gL[6], gR[6];
-      int fb = b, fi_ = i, fj_ = j;
-      if (parts == 1) {
-        // the cells beside the face in the box: lower (l), upper (r)
-        const int ol = axis == 0 ? fi * BJ + fj + 1 : (fi + 1) * BJ + fj;
-        const int orr = (fi + 1) * BJ + fj + 1;
-        for (int c = 0; c < 3; ++c) {
-          pl[c] = ps[c * PS + ol];
-          pr[c] = ps[c * PS + orr];
-        }
-        for (int c = 0; c < 6; ++c) {
-          gL[c] = gs[c * PS + ol];
-          gR[c] = gs[c * PS + orr];
-        }
+    // every face of the piece once, a warp a row of faces
+    const int xrows = t.ni + 1, yrows = t.ni;
+    const int rows = xrows + yrows + (t.nj == TJ ? 1 : 0);
+    for (int row = warp; row < rows; row += kWarps) {
+      int axis, fi, fj;
+      if (row < xrows) {
+        axis = 0, fi = row, fj = lane;
+        if (fj >= t.nj) continue;
+      } else if (row < xrows + yrows) {
+        axis = 1, fi = row - xrows, fj = lane;
+        if (fj > t.nj) continue;
       } else {
-        // one of the finer neighbour's two faces on this one, flat in its
-        // block's x-faces [bs+1, bs] or y-faces [bs, bs+1]
-        const int id = fine[h];
-        const int per = (bs + 1) * bs, w = axis == 0 ? bs : bs + 1;
-        fb = id / per;
-        fi_ = (id % per) / w;
-        fj_ = (id % per) % w;
-        face_sides(a, fb, axis, fi_, fj_, pl, pr, gL, gR);
+        axis = 1, fi = lane, fj = TJ;
+        if (fi >= t.ni) continue;
       }
-      const T x = T(axis_coord(a.axes, fb, bs, axis == 0 ? 2 : 4, fi_));
-      const T y = T(axis_coord(a.axes, fb, bs, axis == 0 ? 3 : 5, fj_));
-      T f[3];
-      face_flux(axis, pl, pr, gL + lo, gR + lo, gL + tr, gR + tr, x, y,
-                T(a.spacing[fb]), prm, f);
-      for (int c = 0; c < 3; ++c) F[c] = h == 0 ? f[c] : F[c] + f[c];
+      const int i = t.i0 + fi, j = t.j0 + fj;   // the face's index in the block
+      const int kk = axis == 0 ? i : j;
+      const int edge = kk == 0 ? 2 * axis : kk == bs ? 2 * axis + 1 : -1;
+      const int pos = axis == 0 ? j : i;
+      const int* fine = edge < 0 ? nullptr
+          : a.fine + (((long long)b * 4 + edge) * bs + pos) * 2;
+      const int parts = fine != nullptr && fine[0] >= 0 ? 2 : 1;
+      const int lo = axis == 0 ? 0 : 3, tr = axis == 0 ? 3 : 0;
+      T F[3];
+      for (int h = 0; h < parts; ++h) {
+        T pl[3], pr[3], gL[6], gR[6];
+        int fb = b, fi_ = i, fj_ = j;
+        if (parts == 1) {
+          // the cells beside the face in the box: lower (l), upper (r)
+          const int ol = axis == 0 ? fi * BJ + fj + 1 : (fi + 1) * BJ + fj;
+          const int orr = (fi + 1) * BJ + fj + 1;
+          for (int c = 0; c < 3; ++c) {
+            pl[c] = ps[c * PS + ol];
+            pr[c] = ps[c * PS + orr];
+          }
+          for (int c = 0; c < 6; ++c) {
+            gL[c] = gs[c * PS + ol];
+            gR[c] = gs[c * PS + orr];
+          }
+        } else {
+          // one of the finer neighbour's two faces on this one, flat in
+          // its block's x-faces [bs+1, bs] or y-faces [bs, bs+1]
+          const int id = fine[h];
+          const int per = (bs + 1) * bs, w = axis == 0 ? bs : bs + 1;
+          fb = id / per;
+          fi_ = (id % per) / w;
+          fj_ = (id % per) % w;
+          face_sides(a, fb, axis, fi_, fj_, pl, pr, gL, gR);
+        }
+        const T x = T(axis_coord(a.axes, fb, bs, axis == 0 ? 2 : 4, fi_));
+        const T y = T(axis_coord(a.axes, fb, bs, axis == 0 ? 3 : 5, fj_));
+        T f[3];
+        face_flux(axis, pl, pr, gL + lo, gR + lo, gL + tr, gR + tr, x, y,
+                  T(a.spacing[fb]), prm, f);
+        for (int c = 0; c < 3; ++c) F[c] = h == 0 ? f[c] : F[c] + f[c];
+      }
+      if (axis == 0)
+        for (int c = 0; c < 3; ++c) fxs[c * XS + fi * TJ + fj] = F[c];
+      else
+        for (int c = 0; c < 3; ++c) fys[c * YS + fi * (TJ + 1) + fj] = F[c];
     }
-    if (axis == 0)
-      for (int c = 0; c < 3; ++c) fxs[c * XS + fi * TJ + fj] = F[c];
-    else
-      for (int c = 0; c < 3; ++c) fys[c * YS + fi * (TJ + 1) + fj] = F[c];
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // the update of each cell of the tile (update_at with these fluxes),
-  // the new rows staged in the slopes' space, which the faces are done with
-  double sum[kTotals];
-  for (int k = 0; k < kTotals; ++k) sum[k] = 0.0;
-  const T dA = T(a.spacing[b] * a.spacing[b]);
-  for (int ci = warp; ci < t.ni; ci += kWarps) {
-    const int cj = lane, i = t.i0 + ci, j = t.j0 + cj;
-    const long long idx = ((long long)b * bs + i) * bs + j;
-    T V[3];
-    if (cj < t.nj) {
-      T U[3], P[3], in[3], div[3];
-      for (int c = 0; c < 3; ++c) {
-        const T xl = fxs[c * XS + ci * TJ + cj];
-        const T xr = fxs[c * XS + (ci + 1) * TJ + cj];
-        const T yl = fys[c * YS + ci * (TJ + 1) + cj];
-        const T yr = fys[c * YS + ci * (TJ + 1) + cj + 1];
-        div[c] = (xr - xl) + (yr - yl);
-        U[c] = src[idx * 3 + c];
-        P[c] = ps[c * PS + (ci + 1) * BJ + cj + 1];
-        in[c] = a.init[idx * 3 + c];
+    // the update of each cell of the piece (update_at with these fluxes),
+    // the new rows staged in the slopes' space, which the faces are done
+    // with
+    double sum[kTotals];
+    for (int s = 0; s < kTotals; ++s) sum[s] = 0.0;
+    const T dA = T(a.spacing[b] * a.spacing[b]);
+    for (int ci = warp; ci < t.ni; ci += kWarps) {
+      const int cj = lane, i = t.i0 + ci, j = t.j0 + cj;
+      const long long idx = ((long long)b * bs + i) * bs + j;
+      T V[3];
+      if (cj < t.nj) {
+        T U[3], P[3], in[3], div[3];
+        for (int c = 0; c < 3; ++c) {
+          const T xl = fxs[c * XS + ci * TJ + cj];
+          const T xr = fxs[c * XS + (ci + 1) * TJ + cj];
+          const T yl = fys[c * YS + ci * (TJ + 1) + cj];
+          const T yr = fys[c * YS + ci * (TJ + 1) + cj + 1];
+          div[c] = (xr - xl) + (yr - yl);
+          U[c] = src[idx * 3 + c];
+          P[c] = ps[c * PS + (ci + 1) * BJ + cj + 1];
+          in[c] = a.init[idx * 3 + c];
+        }
+        const T x = T(axis_coord(a.axes, b, bs, 0, i));
+        const T y = T(axis_coord(a.axes, b, bs, 1, j));
+        double acc[kTotals];
+        update_cell<T>(U, P, in, a.br[idx], div, x, y, dA, prm, V, acc);
+        if (average)
+          for (int c = 0; c < 3; ++c)
+            V[c] = T(0.5) * dst[idx * 3 + c] + T(0.5) * V[c];
+        for (int s = 0; s < kTotals; ++s) sum[s] += acc[s];
       }
-      const T x = T(axis_coord(a.axes, b, bs, 0, i));
-      const T y = T(axis_coord(a.axes, b, bs, 1, j));
-      double acc[kTotals];
-      update_cell<T>(U, P, in, a.br[idx], div, x, y, dA, prm, V, acc);
-      if (average)
-        for (int c = 0; c < 3; ++c)
-          V[c] = T(0.5) * dst[idx * 3 + c] + T(0.5) * V[c];
-      for (int k = 0; k < kTotals; ++k) sum[k] += acc[k];
+      store_row<T, 3>(dst, idx - cj, t.nj, V, gs + warp * 3 * 32);
     }
-    store_row<T, 3>(dst, idx - cj, t.nj, V, gs + warp * 3 * 32);
+    block_sum(sum, sm.piece);
+    if (threadIdx.x < kTotals)
+      a.partials[(long long)threadIdx.x * a.n_pieces + n] =
+          sm.piece[threadIdx.x];
+    n = next;
   }
-  block_sum(sum, a.partials + (long long)blockIdx.x * kTotals);
 }
 
 // ---- the scalar kernels ----------------------------------------------------
@@ -764,9 +865,10 @@ __device__ void write_elements(double* row, int r, const T* values) {
 }
 
 // the first stage's bodies and theta (and a fixed dt) into dyn; t0 and the
-// elements into the carry
+// elements into the carry; no piece of sweep 2 claimed yet
 template <typename T>
 __global__ void b3_init_kernel(Args<T> a) {
+  for (int k = 0; k < a.k_steps * a.rk; ++k) a.work[k] = 0;
   T t = T(a.start[0]), E[10], body[2][5];
   for (int j = 0; j < 10; ++j) E[j] = T(a.start[1 + j]);
   kepler_bodies(E, t, body);
@@ -777,20 +879,20 @@ __global__ void b3_init_kernel(Args<T> a) {
   carry_store(a, kCarryE, E, 10);
 }
 
-// the stage's totals from the tiles' partials, then (one thread) the work
+// the stage's totals from sweep 2's partials, then (one thread) the work
 // done, the row of stage `stage` (1 or 2) of step k, the elements and the
 // next stage's bodies
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 b3_stage_end_kernel(Args<T> a, int k, int stage) {
-  // every thread sums its tiles' partials (k, k + kThreads, ...), then
+  // every thread sums its CTAs' partials (k, k + kThreads, ...), then
   // block_sum: a fixed order; negated, as the plain version's totals are,
   // but for the fault count
   double acc[kTotals];
   for (int q = 0; q < kTotals; ++q) acc[q] = 0.0;
-  for (int k = threadIdx.x; k < a.n_tiles; k += kThreads)
+  for (int k = threadIdx.x; k < a.n_pieces; k += kThreads)
     for (int q = 0; q < kTotals; ++q)
-      acc[q] += a.partials[(long long)k * kTotals + q];
+      acc[q] += a.partials[(long long)q * a.n_pieces + k];
   __shared__ double sums[kTotals];
   block_sum(acc, sums);
   __syncthreads();
@@ -850,16 +952,18 @@ template <typename T>
 cudaError_t allow_sweep2_smem() {
   return cudaFuncSetAttribute(b3_sweep2_kernel<T>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              sweep2_smem<T>());
+                              (int)sizeof(MarchSmem<T>));
 }
 
 template <typename T>
 int advance_k(const Args<T>& a, int ti, int tj, cudaStream_t stream) {
-  if (ti != Tile<T>::I || tj != Tile<T>::J || a.n_tiles < 1)
+  if (ti != Tile<T>::I || tj != Tile<T>::J || a.n_tiles < 1
+      || a.n_pieces < 1 || a.n_ctas < 1)
     return cudaErrorInvalidValue;
   cudaError_t err = allow_sweep2_smem<T>();
   if (err != cudaSuccess) return err;
-  const int tiles = a.n_tiles, smem = sweep2_smem<T>();
+  const int tiles = a.n_tiles, ctas = a.n_ctas;
+  const int smem = (int)sizeof(MarchSmem<T>);
   T* after1 = a.rk == 1 ? a.u : a.s1;
 #define B3_CHECK()                                 \
   do {                                             \
@@ -876,7 +980,8 @@ int advance_k(const Args<T>& a, int ti, int tj, cudaStream_t stream) {
       b3_dt_kernel<T><<<1, kThreads, 0, stream>>>(a);
       B3_CHECK();
     }
-    b3_sweep2_kernel<T><<<tiles, kThreads, smem, stream>>>(a, a.u, after1, 0);
+    b3_sweep2_kernel<T><<<ctas, kThreads, smem, stream>>>(a, a.u, after1, 0,
+                                                         k * a.rk);
     B3_CHECK();
     b3_stage_end_kernel<T><<<1, kThreads, 0, stream>>>(a, k, 1);
     B3_CHECK();
@@ -884,7 +989,8 @@ int advance_k(const Args<T>& a, int ti, int tj, cudaStream_t stream) {
     // stage 2: from stage 1's state at t + dt, then the average
     b3_sweep1_kernel<T><<<tiles, kThreads, 0, stream>>>(a, a.s1, 0);
     B3_CHECK();
-    b3_sweep2_kernel<T><<<tiles, kThreads, smem, stream>>>(a, a.s1, a.u, 1);
+    b3_sweep2_kernel<T><<<ctas, kThreads, smem, stream>>>(a, a.s1, a.u, 1,
+                                                         2 * k + 1);
     B3_CHECK();
     b3_stage_end_kernel<T><<<1, kThreads, 0, stream>>>(a, k, 2);
     B3_CHECK();
@@ -919,7 +1025,7 @@ int kernel_info(int which, int* out) {
   err = cudaFuncGetAttributes(&fa, fn);
   if (err != cudaSuccess) return err;
   const int threads = which == 4 ? 1 : kThreads;
-  const int dynamic = which == 1 ? sweep2_smem<T>() : 0;
+  const int dynamic = which == 1 ? (int)sizeof(MarchSmem<T>) : 0;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
                                                       dynamic);
@@ -936,16 +1042,18 @@ int kernel_info(int which, int* out) {
 template <typename T>
 int launch(T* u, T* s1, T* p, T* g, const T* init, const T* br,
            const double* axes, const double* spacing, const int* tiles,
-           const int* ring, const int* fine, double* partials,
-           double* totals, double* cfl_part, const double* start,
-           double* dyn, double* carry, double* rows, int B, int bs,
-           int n_tiles, int ti, int tj, int k_steps, int rk, int options,
-           int fixed, const double* hparams, int flags,
-           const double* mparams, void* stream) {
+           const int* ring, const int* fine, const int* pieces, int* work,
+           double* partials, double* totals, double* cfl_part,
+           const double* start, double* dyn, double* carry, double* rows,
+           int B, int bs, int n_tiles, int n_pieces, int n_ctas, int ti,
+           int tj, int k_steps, int rk, int options, int fixed,
+           const double* hparams, int flags, const double* mparams,
+           void* stream) {
   const Args<T> a{u, s1, p, g, init, br, axes, spacing, tiles, ring, fine,
-                  partials, totals, cfl_part, start, dyn, carry, rows, B,
-                  bs, n_tiles, k_steps, rk, options & 1, fixed, mparams[0],
-                  mparams[1], mparams[2], read_params(hparams, flags)};
+                  pieces, work, partials, totals, cfl_part, start, dyn,
+                  carry, rows, B, bs, n_tiles, n_pieces, n_ctas, k_steps, rk,
+                  options & 1, fixed, mparams[0], mparams[1], mparams[2],
+                  read_params(hparams, flags)};
   return advance_k<T>(a, ti, tj, static_cast<cudaStream_t>(stream));
 }
 
@@ -963,36 +1071,43 @@ const char* b3_error_string(int code) {
 }
 
 // options: bit 0 no_accretion_force; mparams: cfl, fixed dt,
-// begin_live_binary; (ti, tj) must be the type's Tile
+// begin_live_binary; (ti, tj) must be the type's Tile; pieces: sweep 2's
+// n_pieces pieces (kernels/binary_multi.tile_plan), which n_ctas CTAs
+// claim; work: k_steps * rk counters
 int b3_advance_k_f32(float* u, float* s1, float* p, float* g,
                      const float* init, const float* br, const double* axes,
                      const double* spacing, const int* tiles,
-                     const int* ring, const int* fine, double* partials,
-                     double* totals, double* cfl_part, const double* start,
-                     double* dyn, double* carry, double* rows, int B, int bs,
-                     int n_tiles, int ti, int tj, int k_steps, int rk,
-                     int options, int fixed, const double* hparams,
-                     int flags, const double* mparams, void* stream) {
+                     const int* ring, const int* fine, const int* pieces,
+                     int* work, double* partials, double* totals,
+                     double* cfl_part, const double* start, double* dyn,
+                     double* carry, double* rows, int B, int bs,
+                     int n_tiles, int n_pieces, int n_ctas, int ti, int tj,
+                     int k_steps, int rk, int options, int fixed,
+                     const double* hparams, int flags,
+                     const double* mparams, void* stream) {
   return launch<float>(u, s1, p, g, init, br, axes, spacing, tiles, ring,
-                       fine, partials, totals, cfl_part, start, dyn, carry,
-                       rows, B, bs, n_tiles, ti, tj, k_steps, rk, options,
-                       fixed, hparams, flags, mparams, stream);
+                       fine, pieces, work, partials, totals, cfl_part, start,
+                       dyn, carry, rows, B, bs, n_tiles, n_pieces, n_ctas,
+                       ti, tj, k_steps, rk, options, fixed, hparams, flags,
+                       mparams, stream);
 }
 
 int b3_advance_k_f64(double* u, double* s1, double* p, double* g,
                      const double* init, const double* br,
                      const double* axes, const double* spacing,
                      const int* tiles, const int* ring, const int* fine,
-                     double* partials, double* totals, double* cfl_part,
-                     const double* start, double* dyn, double* carry,
-                     double* rows, int B, int bs, int n_tiles, int ti,
-                     int tj, int k_steps, int rk, int options, int fixed,
+                     const int* pieces, int* work, double* partials,
+                     double* totals, double* cfl_part, const double* start,
+                     double* dyn, double* carry, double* rows, int B, int bs,
+                     int n_tiles, int n_pieces, int n_ctas, int ti, int tj,
+                     int k_steps, int rk, int options, int fixed,
                      const double* hparams, int flags,
                      const double* mparams, void* stream) {
   return launch<double>(u, s1, p, g, init, br, axes, spacing, tiles, ring,
-                        fine, partials, totals, cfl_part, start, dyn, carry,
-                        rows, B, bs, n_tiles, ti, tj, k_steps, rk, options,
-                        fixed, hparams, flags, mparams, stream);
+                        fine, pieces, work, partials, totals, cfl_part,
+                        start, dyn, carry, rows, B, bs, n_tiles, n_pieces,
+                        n_ctas, ti, tj, k_steps, rk, options, fixed, hparams,
+                        flags, mparams, stream);
 }
 
 }  // extern "C"

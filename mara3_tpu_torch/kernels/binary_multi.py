@@ -27,9 +27,10 @@ rows (schemes/binary_step.make_multi_scan).
   call per K steps, which issues each stage's sweeps and small scalar
   kernels on the current stream, with no host read between steps);
   `advance_k_cuda.launches` counts its calls. `tile_plan` builds the
-  host-side geometry it reads as tables: the tiles of each block, the
-  source cells of each guard cell and the finer neighbors' faces at each
-  level jump.
+  host-side geometry it reads as tables: sweep 1's tiles of each block,
+  sweep 2's pieces (tiles of at most MARCH_ROWS rows, which the CTAs of
+  one wave claim in turn), the source cells of each guard cell and the
+  finer neighbors' faces at each level jump.
 - `advance_k` takes the plain version for a tensor on the CPU and the kernel
   for a CUDA tensor; it never falls back from one to the other.
 
@@ -152,18 +153,22 @@ def advance_k_plain(t: BA.AdvanceTables, u, e10, t0, mc: MultiConfig):
 # the tile plan: the host-side geometry of the CUDA kernel
 # -----------------------------------------------------------------------------
 
-# the sweeps' tile (csrc/binary_multi.cu Tile<T>): rows along i by columns
+# sweep 1's tile (csrc/binary_multi.cu Tile<T>): rows along i by columns
 # along j, the state's fastest index; clipped at the block's edges
 TILE = {torch.float32: (32, 32), torch.float64: (16, 32)}
+# sweep 2's pieces (csrc/binary_multi.cu kMarchRows): tiles of at most
+# MARCH_ROWS rows of a block's strip of 32 columns, in either dtype
+MARCH_ROWS = 15
 
 
 @dataclass(frozen=True)
 class TilePlan:
     """The tables kernel B3 reads in place of the neighbor table (int32
     tensors on the neighbor table's device)."""
-    tiles: torch.Tensor   # [T, 5] (block, i0, j0, ni, nj)
+    tiles: torch.Tensor   # [T, 5] (block, i0, j0, ni, nj), sweep 1's
     ring: torch.Tensor    # [B, 4, bs, 4] source cells of each guard cell
     fine: torch.Tensor    # [B, 4, bs, 2] finer neighbor's faces, or -1
+    pieces: torch.Tensor  # [P, 5] as tiles, sweep 2's
 
 
 def block_tiles(B: int, bs: int, tile, device="cpu") -> torch.Tensor:
@@ -231,27 +236,56 @@ def fine_faces(tab, bs: int) -> torch.Tensor:
     return torch.where((col(0) == 2)[..., None], pair, -1)
 
 
+def march_pieces(tab, bs: int, rows: int) -> torch.Tensor:
+    """[P, 5] int32 (block, i0, j0, ni, nj): sweep 2's pieces, the tiles of
+    `rows` rows of each block's 32-column strips, in the order its CTAs
+    claim them: the costliest first, so that the last pieces, which set
+    the kernel's end, are the cheapest. A piece's cost is its rows, then
+    its faces on block edges where finer neighbours meet it (each two
+    faces recomputed from device memory)."""
+    tab = torch.as_tensor(tab)
+    t = block_tiles(tab.shape[0], bs, (rows, 32), tab.device).long()
+    b, i0, j0, ni, nj = t.unbind(-1)
+    fine = tab[b, :, 0] == 2                               # [P, 4]
+    on = torch.stack([i0 == 0, i0 + ni == bs, j0 == 0, j0 + nj == bs], -1)
+    cost = ((fine & on).long() * torch.stack([nj, nj, ni, ni], -1)).sum(-1)
+    order = torch.argsort(ni * 4 * bs + cost, descending=True, stable=True)
+    return t[order].to(torch.int32)
+
+
 def tile_plan(tab, bs: int, tile) -> TilePlan:
-    """The tables of one mesh for the sweeps' tile = (ti, tj), built with
-    torch ops on the device of `tab` (a tensor or an array)."""
+    """The tables of one mesh for sweep 1's tile = (ti, tj) and sweep 2's
+    pieces, built with torch ops on the device of `tab` (a tensor or an
+    array)."""
     tab = torch.as_tensor(tab)
     plan = (block_tiles(tab.shape[0], bs, tile, tab.device),
-            ring_sources(tab, bs), fine_faces(tab, bs))
+            ring_sources(tab, bs), fine_faces(tab, bs),
+            march_pieces(tab, bs, MARCH_ROWS))
     return TilePlan(*(a.to(torch.int32).contiguous() for a in plan))
 
 
-_plans: list = []    # (tables, tile plan) of the latest meshes
+def march_ctas(pieces: int, sms: int, ctas_per_sm: int) -> int:
+    """Sweep 2's CTAs: as many as the card holds at once, one wave, or one
+    a piece where there are fewer pieces."""
+    return max(1, min(pieces, sms * ctas_per_sm))
 
 
-def _device_plan(t: BA.AdvanceTables) -> TilePlan:
-    """The tile plan of t's mesh on t's device, built once a mesh."""
-    for tables, plan in _plans:
+_plans: list = []    # (tables, tile plan, sweep 2's CTAs) of the latest meshes
+
+
+def _device_plan(t: BA.AdvanceTables):
+    """(tile plan, sweep 2's CTAs) of t's mesh on t's device and card,
+    built once a mesh (a regrid that changes the tree makes new tables)."""
+    for tables, plan, ctas in _plans:
         if tables is t:
-            return plan
+            return plan, ctas
     plan = tile_plan(t.tab, t.xc.shape[1], TILE[t.dtype])
-    _plans.append((t, plan))
+    sms = torch.cuda.get_device_properties(t.xc.device).multi_processor_count
+    per_sm = kernel_info(t.dtype)["b3_sweep2"]["ctas_per_sm"]
+    ctas = march_ctas(plan.pieces.shape[0], sms, per_sm)
+    _plans.append((t, plan, ctas))
     del _plans[:-4]
-    return plan
+    return plan, ctas
 
 
 # -----------------------------------------------------------------------------
@@ -271,7 +305,7 @@ def _library():
     lib = _build.load("binary_multi")
     if not getattr(lib, "_mara_typed", False):
         for fn in (lib.b3_advance_k_f32, lib.b3_advance_k_f64):
-            fn.argtypes = ([_c_void_p] * 18 + [_c_int] * 9
+            fn.argtypes = ([_c_void_p] * 20 + [_c_int] * 11
                            + [_c_void_p, _c_int, _c_void_p, _c_void_p])
             fn.restype = _c_int
         lib.b3_kernel_info.argtypes = [_c_int, _c_int, _c_void_p]
@@ -310,15 +344,16 @@ def advance_k_cuda(t: BA.AdvanceTables, u, e10, t0, mc: MultiConfig):
                          f"not {mc.rk_order}")
     B, bs = t.xc.shape[0], t.xc.shape[1]
     lib = _library()
-    plan = _device_plan(t)
-    tiles, ring, fine = plan.tiles, plan.ring, plan.fine
+    plan, ctas = _device_plan(t)
+    tiles, ring, fine, pieces = plan.tiles, plan.ring, plan.fine, plan.pieces
     empty = lambda *shape, dtype=t.dtype: torch.empty(shape, dtype=dtype,
                                                       device=u.device)
     out = u.clone()
     s1 = empty(B, bs, bs, 3) if mc.rk_order == 2 else out
     p = empty(B, bs, bs, 3)
     g = empty(B, bs, bs, 6)
-    partials = empty(tiles.shape[0], BA.NUM_TOTALS, dtype=torch.float64)
+    partials = empty(BA.NUM_TOTALS, pieces.shape[0], dtype=torch.float64)
+    work = empty(mc.k_steps * mc.rk_order, dtype=torch.int32)
     totals = empty(BA.NUM_TOTALS, dtype=torch.float64)
     cfl_part = empty(tiles.shape[0], dtype=torch.float64)
     start = torch.cat([t0.reshape(1), e10.reshape(10)]).to(torch.float64)
@@ -336,10 +371,11 @@ def advance_k_cuda(t: BA.AdvanceTables, u, e10, t0, mc: MultiConfig):
     rc = fn(out.data_ptr(), s1.data_ptr(), p.data_ptr(), g.data_ptr(),
             t.initial_conserved.data_ptr(), t.buffer_rate.data_ptr(),
             t.axes.data_ptr(), t.spacing64.data_ptr(), tiles.data_ptr(),
-            ring.data_ptr(), fine.data_ptr(), partials.data_ptr(),
-            totals.data_ptr(), cfl_part.data_ptr(), start.data_ptr(),
-            dyn.data_ptr(), carry.data_ptr(), rows.data_ptr(), B, bs,
-            tiles.shape[0], ti, tj, mc.k_steps, mc.rk_order,
+            ring.data_ptr(), fine.data_ptr(), pieces.data_ptr(),
+            work.data_ptr(), partials.data_ptr(), totals.data_ptr(),
+            cfl_part.data_ptr(), start.data_ptr(), dyn.data_ptr(),
+            carry.data_ptr(), rows.data_ptr(), B, bs, tiles.shape[0],
+            pieces.shape[0], ctas, ti, tj, mc.k_steps, mc.rk_order,
             int(mc.no_accretion_force), int(mc.fixed_dt is not None),
             hparams.ctypes.data, flags, mparams.ctypes.data, stream)
     if rc != 0:

@@ -360,14 +360,25 @@ def test_b3_fault_flag_and_dispatch(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_b3_kernels_fit_on_the_card(cuda_device, dtype):
     """Every kernel of B3 has a CTA of its threads resident on an SM, sweep
-    2 with its shared-memory tile; the sweeps run at least two CTAs."""
+    2 with its march's shared memory (a piece's box of p and g, its faces);
+    the sweeps run at least two CTAs an SM, and sweep 2 one wave of them:
+    the card's SMs times that, or one a piece."""
     info = TM.kernel_info(dtype)
     assert set(info) == set(TM.KERNELS)
     for name, k in info.items():
         assert k["ctas_per_sm"] >= 1 and k["registers"] >= 1, name
     assert info["b3_sweep1"]["ctas_per_sm"] >= 2
     assert info["b3_sweep2"]["ctas_per_sm"] >= 2
-    assert info["b3_sweep2"]["dynamic_smem"] > 48 * 1024
+    R, size = TM.MARCH_ROWS, torch.tensor([], dtype=dtype).element_size()
+    box_and_faces = (9 * (R + 2) * 34 + 3 * (R + 1) * 32 + 3 * R * 33) * size
+    assert info["b3_sweep2"]["dynamic_smem"] >= box_and_faces
+    assert info["b3_sweep2"]["threads"] == 256
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for bs in (16, 96):
+        t = multi_case({}, cuda_device, dtype, 1, False, bs=bs)[0]
+        plan, ctas = TM._device_plan(t)
+        assert ctas == min(plan.pieces.shape[0],
+                           sms * info["b3_sweep2"]["ctas_per_sm"])
 
 
 @pytest.mark.cuda
@@ -411,3 +422,33 @@ def test_b3_power_of_two_spacing(cuda_device, dtype):
     assert (np.frexp(spacing)[0] == 0.5).all()
     assert_multi_close(TM.advance_k_cuda(*args), TM.advance_k_plain(*args),
                        dtype, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ctas", [1, 7])
+def test_b3_share_starts_mid_block_across_a_level_jump(cuda_device, ctas,
+                                                       dtype):
+    """Sweep 2 with one CTA, which marches every piece in turn, and with 7,
+    which share them as they claim them: block 40 at depth 3, where pieces
+    start inside a block (rows 15 and 30), a full strip of 32 columns sits
+    beside a clipped one of 8, and every face direction meets coarser and
+    finer neighbours. The state is the card's own wave's bit for bit (rk 1,
+    not live: the totals' order does not reach it; a piece's totals do not
+    depend on which CTA computed it) and the rows are within the plain
+    version's bars."""
+    args = multi_case({"conserve_linear_p": 0}, cuda_device, dtype, 1,
+                      False, bs=40)
+    t = args[0]
+    u_card, rows_card = TM.advance_k_cuda(*args)
+    plan, _ = TM._device_plan(t)
+    assert (plan.pieces[:, 1].cpu() % 32 != 0).any()
+    try:
+        TM._plans.clear()
+        TM._plans.append((t, plan, ctas))
+        got = TM.advance_k_cuda(*args)
+    finally:
+        TM._plans.clear()
+    assert torch.equal(got[0], u_card)
+    assert torch.equal(got[1], rows_card)
+    assert_multi_close(got, TM.advance_k_plain(*args), dtype, 4)

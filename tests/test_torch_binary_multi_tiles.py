@@ -9,7 +9,12 @@ correct_coarse_fine_fluxes).
 Meshes: the flagship's depth 3 (28 blocks, same, coarser and finer
 neighbors on every face) at block 16, which one tile covers, and at block
 40, which neither type's tile divides. The values are float64 from a
-seed; sums taken in the kernel's order are compared bit for bit."""
+seed; sums taken in the kernel's order are compared bit for bit.
+
+Sweep 2's pieces (kernels/binary_multi.tile_plan, march_ctas): on the
+flagship's d6b96 mesh and at depth 3 with blocks of 24 and 40 (one clipped
+strip a block; a full and a clipped one), for 132 SMs and an odd count, at
+two and three CTAs an SM."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -188,3 +193,64 @@ def test_fine_faces_face_back_onto_the_coarse_block(mesh):
             assert tab[nb, back, 0] == 1 and tab[nb, back, 2] == b
             along = j if axis == 0 else i
             assert along == (2 * pos) % bs + h
+
+
+PIECE_MESHES = [(6, 96), (3, 24), (3, 40)]
+# CTAs an SM of sweep 2: its launch bounds ask for three (csrc/
+# binary_multi.cu kSweep2Ctas); the card's occupancy calculator gives the
+# number the plan takes
+PIECE_CASES = [(m, per_sm, sms) for m in PIECE_MESHES for per_sm in (2, 3)
+               for sms in (132, 7)]
+PIECE_IDS = [f"d{d}b{bs}-{per_sm}x{sms}sm"
+             for (d, bs), per_sm, sms in PIECE_CASES]
+
+
+@pytest.mark.parametrize("mesh,per_sm,sms", PIECE_CASES, ids=PIECE_IDS)
+def test_march_pieces_cover_every_cell_once(mesh, per_sm, sms):
+    """Sweep 2's pieces, which the CTAs of one wave claim in turn, cover
+    every cell of every block once; each lies in one strip of 32 columns
+    and holds at most a row-group of its rows, so no CTA marches more than
+    one piece past the others; a strip that the block's edge clips keeps
+    its lane count; some pieces start inside a block, on a row that is
+    not a multiple of 32, and some meet a level jump at their lower edge;
+    the costliest come first."""
+    depth, bs = mesh
+    tab, _, _ = meshes(depth, bs)
+    B = tab.shape[0]
+    G = TM.MARCH_ROWS
+    plan = TM.tile_plan(tab, bs, TM.TILE[torch.float32])
+    pieces = plan.pieces.numpy()
+    assert pieces.dtype == np.int32 and pieces.shape[1] == 5
+    strips = -(-bs // 32)
+    assert len(pieces) == B * strips * -(-bs // G)
+    n = TM.march_ctas(len(pieces), sms, per_sm)
+    assert n == min(len(pieces), sms * per_sm)
+    count = np.zeros((B, bs, bs), np.int64)
+    for b, i0, j0, ni, nj in pieces:
+        assert 1 <= ni <= G and (ni == G or i0 + ni == bs)
+        assert j0 % 32 == 0 and nj == min(32, bs - j0)
+        count[b, i0:i0 + ni, j0:j0 + nj] += 1
+    np.testing.assert_array_equal(count, 1)
+    # clipped strips keep their lanes: a strip is [j0, min(j0 + 32, bs))
+    assert sorted(set(pieces[:, 4])) == sorted({min(32, bs - j0)
+                                               for j0 in range(0, bs, 32)})
+    assert ((pieces[:, 1] % 32) != 0).any()
+    lower = pieces[:, 1] + pieces[:, 3] == bs
+    assert (tab[pieces[lower, 0], 1, 0] != 0).any()
+    # claimed costliest first: the full-height pieces, those with finer
+    # neighbours' faces first among them; the short ones last
+    ni = pieces[:, 3]
+    assert (np.diff(ni) <= 0).all()
+    b, i0, j0, _, nj = pieces.T.astype(np.int64)
+    fine = tab[b, :, 0] == 2
+    cost = (nj * fine[:, 0] * (i0 == 0) + nj * fine[:, 1] * (i0 + ni == bs)
+            + ni * fine[:, 2] * (j0 == 0) + ni * fine[:, 3] * (j0 + nj == bs))
+    assert (np.diff(cost[ni == G]) <= 0).all() and cost.max() > 0
+
+
+@pytest.mark.parametrize("pieces,sms,per_sm,ctas", [
+    (2856, 132, 3, 396), (2856, 7, 2, 14), (10, 132, 3, 10), (0, 132, 3, 1)])
+def test_march_ctas_one_wave_or_one_a_piece(pieces, sms, per_sm, ctas):
+    """Sweep 2 launches one wave (the card's SMs times its CTAs an SM), or
+    one CTA a piece where the mesh has fewer pieces, and never none."""
+    assert TM.march_ctas(pieces, sms, per_sm) == ctas

@@ -3,12 +3,12 @@
 bounds or float32 tile heights, or with one phase's arithmetic removed.
 
 A variant "S1,S2,TI" builds the source with kSweep1Ctas and kSweep2Ctas
-(the CTAs an SM that each sweep's __launch_bounds__ asks registers for)
-set to S1 and S2 and the float32 tile's rows to TI
-(kernels/binary_multi.TILE follows it). A variant "-PHASE" builds it with
-PHASE's arithmetic replaced by a few operations on the same inputs, so its
-time shows what the phase costs (its results are wrong, and it is not held
-to anything):
+(the CTAs an SM that each sweep's __launch_bounds__ asks registers for;
+sweep 2's march takes as many CTAs as the card then holds) set to S1 and
+S2 and sweep 1's float32 tile's rows to TI (kernels/binary_multi.TILE
+follows it). A variant "-PHASE" builds it with PHASE's arithmetic
+replaced by a few operations on the same inputs, so its time shows what
+the phase costs (its results are wrong, and it is not held to anything):
   -faces   sweep 2's face flux (face_flux)
   -update  sweep 2's per-cell update (update_cell)
   -totals  sweep 2's running float64 totals but the fault count
@@ -19,11 +19,11 @@ All variants are built at once, one nvcc each, then run on the flagship's
 main-path shape (d6b96 float32, one call of 16 RK2 steps, chip_smoke.py's
 phase-10 case). The first is the source as it is; a launch-bound or tile
 variant is held to its state (bit for bit: neither changes a cell's
-arithmetic) and rows (the totals' summation order follows the tile). Each
-is timed by CUDA events in turns (first to last, then last to first, the
-best of the two) and split by kernel under torch.profiler. Prints the
-card's name and power limit first and a JSON summary last. Needs a CUDA
-card and nvcc; imports nothing of JAX.
+arithmetic) and rows (sweep 2's pieces and their totals' order do not
+change either). Each is timed by CUDA events in turns (first to last,
+then last to first, the best of the two) and split by kernel under
+torch.profiler. Prints the card's name and power limit first and a JSON
+summary last. Needs a CUDA card and nvcc; imports nothing of JAX.
 
     python3 tools/torch_b3_variants.py [S1,S2,TI | -PHASE ...]
 """
@@ -48,20 +48,20 @@ BOUNDS = "constexpr int kSweep1Ctas = 4, kSweep2Ctas = 3;"
 TILE_F32 = "static constexpr int I = 32, J = 32;"
 # each phase's removal: (the source's text, its replacement)
 PHASES = {
-    "faces": ("      face_flux(axis, pl, pr, gL + lo, gR + lo, gL + tr, "
-              "gR + tr, x, y,\n                T(a.spacing[fb]), prm, f);",
-              "      for (int c = 0; c < 3; ++c)\n"
-              "        f[c] = pl[c] - pr[c] + (gL[lo + c] - gR[tr + c]) * x "
+    "faces": ("        face_flux(axis, pl, pr, gL + lo, gR + lo, gL + tr, "
+              "gR + tr, x, y,\n                  T(a.spacing[fb]), prm, f);",
+              "        for (int c = 0; c < 3; ++c)\n"
+              "          f[c] = pl[c] - pr[c] + (gL[lo + c] - gR[tr + c]) * x "
               "* y;"),
-    "update": ("      update_cell<T>(U, P, in, a.br[idx], div, x, y, dA, "
+    "update": ("        update_cell<T>(U, P, in, a.br[idx], div, x, y, dA, "
                "prm, V, acc);",
-               "      for (int c = 0; c < 3; ++c)\n"
-               "        V[c] = U[c] - div[c] * dA + P[c] * in[c] * "
+               "        for (int c = 0; c < 3; ++c)\n"
+               "          V[c] = U[c] - div[c] * dA + P[c] * in[c] * "
                "a.br[idx];\n"
-               "      for (int q = 0; q < kTotals; ++q) acc[q] = "
-               "double(V[q % 3]);"),
-    "totals": ("      for (int k = 0; k < kTotals; ++k) sum[k] += acc[k];",
-               "      sum[kFaults] += acc[kFaults];"),
+               "        for (int s = 0; s < kTotals; ++s) acc[s] = "
+               "double(V[s % 3]);"),
+    "totals": ("        for (int s = 0; s < kTotals; ++s) sum[s] += acc[s];",
+               "        sum[kFaults] += acc[kFaults];"),
     "scalar": ("  const double* tot = a.totals;\n",
                "  if (a.k_steps > 0) return;\n  const double* tot = "
                "a.totals;\n"),
