@@ -9,8 +9,8 @@ common parts are factored once:
 - numbered checkpoint paths and schedules
 - numbered checkpoints with solution/schedule/run_config groups
   (reference subprog_boilerplate.cpp:201-210)
-- the fixed-dt loops' chunk plan, traced outputs and ``[iter] t=...
-  kzps=... [path]`` line, and the line of a per-step loop
+- the fixed-dt loops' chunk plan, traced outputs, chunks in flight and
+  ``[iter] t=... kzps=... [path]`` line, and the line of a per-step loop
 - the finiteness test of a run's state at each write and at its end
 
 h5py is imported only by the functions that open a file, so a run that
@@ -26,7 +26,7 @@ import os
 import numpy as np
 import torch
 
-from mara3_tpu_torch.app import serialize
+from mara3_tpu_torch.app import performance, serialize
 from mara3_tpu_torch.app.config import Config, ConfigTemplate, argv_to_string_map
 from mara3_tpu_torch.app.schedule import Schedule
 
@@ -96,12 +96,17 @@ def steps_to_next_stop(t: float, dt: float, tfinal: float, dues=()) -> int:
     return n
 
 
+def due_tasks(schedule) -> list:
+    """The names of the tasks due in `schedule`."""
+    return [task.name for task in schedule if task.is_due]
+
+
 @contextlib.contextmanager
 def traced_outputs(rec, schedule):
     """Around a fixed-dt loop's task call: counts `outputs.<task>` for each
     task due in `schedule` and, if one is, opens `mara3.output` with task
     the due names joined by "+". Yields the due names."""
-    due = [task.name for task in schedule if task.is_due]
+    due = due_tasks(schedule)
     for name in due:
         rec.count(f"outputs.{name}")
     with (rec.span("mara3.output", task="+".join(due)) if due
@@ -109,16 +114,95 @@ def traced_outputs(rec, schedule):
         yield due
 
 
-def end_chunk(rec, steps: int, iteration: int, time: float, zones: int,
-              ms: float, path: str):
-    """The end of a fixed-dt loop's chunk: the `steps` counter and
-    attribute, then in `mara3.print` the line ``[iter] t=... kzps=...
-    [path]`` that torch_bench/record.py and chip_smoke.py parse."""
-    rec.count("steps", steps)
-    rec.annotate(steps=steps)
-    with rec.span("mara3.print"):
-        print(f"[{iteration:04d}] t={time:3.7f} "
-              f"kzps={steps * zones / max(ms, 1e-9):3.2f} [{path}]")
+def progress_line(steps: int, iteration: int, time: float, zones: int,
+                  ms: float, path: str) -> str:
+    """A fixed-dt loop's line ``[iter] t=... kzps=... [path]``, which
+    torch_bench/record.py and chip_smoke.py parse."""
+    return (f"[{iteration:04d}] t={time:3.7f} "
+            f"kzps={steps * zones / max(ms, 1e-9):3.2f} [{path}]")
+
+
+class _Chunk:
+    """A launched chunk: its Launch, whether it has been waited on, and
+    what its progress line needs."""
+    __slots__ = ("launch", "waited", "line")
+
+    def __init__(self, launch, line):
+        self.launch, self.waited, self.line = launch, False, line
+
+
+class ChunksInFlight:
+    """A fixed-dt loop's chunks, one chunk left running on the device while
+    the host plans and launches the next.
+
+    Per chunk the loop calls `launch()` around its advance call, then
+    `end(steps, iteration, time, zones, path)` with the values after it.
+    `end` counts the `steps` and, only then, waits for the chunk before
+    (`mara3.wait`) and prints that chunk's progress line (`mara3.print`),
+    its kzps from the chunk's time on the card. So the stream holds at
+    most two chunks, and a line is printed only once its chunk has ended
+    on the card.
+
+    Before it reads the state on the host (a task due, a regrid, its end)
+    the loop calls `drain()`: wait for the chunk in flight and print its
+    line. Where the loop prints a chunk's line after the host read (the
+    tasks after the launch in sedov and cloud, blast3d's finiteness test)
+    it calls `wait()` instead; the line follows at the next `end()` or
+    `drain()`. Counters: `chunks_in_flight`, the launches made while the
+    chunk before was not waited on, and `drains`, the waits of `wait()`
+    and `drain()`."""
+
+    def __init__(self, rec, device):
+        self.rec, self.device = rec, torch.device(device)
+        self.last = None      # the newest chunk whose line is not printed
+        self.launched = None  # the Launch of the chunk launch() last ran
+
+    @contextlib.contextmanager
+    def launch(self):
+        """The advance call in `mara3.launch`, not waited for."""
+        if self.last is not None and not self.last.waited:
+            self.rec.count("chunks_in_flight")
+        with performance.timed_launch(self.rec, self.device) as launch:
+            yield
+        self.launched = launch
+
+    def end(self, steps: int, iteration: int, time: float, zones: int,
+            path: str):
+        """The end of the chunk just launched, its `steps` counted; the
+        chunk before is waited for and its line printed."""
+        self.rec.count("steps", steps)
+        self.rec.annotate(steps=steps)
+        before, self.last = self.last, _Chunk(
+            self.launched, (steps, iteration, time, zones, path))
+        if before is not None:
+            self._print(before)
+
+    def wait(self):
+        """Wait for the chunk in flight, if there is one; its line is
+        kept."""
+        chunk = self.last
+        if chunk is not None and not chunk.waited:
+            self.rec.count("drains")
+            self._wait(chunk)
+
+    def drain(self):
+        """Wait for the chunk in flight and print the line kept."""
+        self.wait()
+        if self.last is not None:
+            self._print(self.last)
+            self.last = None
+
+    def _wait(self, chunk):
+        performance.wait(self.rec, chunk.launch)
+        chunk.waited = True
+
+    def _print(self, chunk):
+        if not chunk.waited:
+            self._wait(chunk)
+        steps, iteration, time, zones, path = chunk.line
+        with self.rec.span("mara3.print"):
+            print(progress_line(steps, iteration, time, zones,
+                                chunk.launch.ms, path))
 
 
 def print_run_loop_message(iteration: int, time: float, total_zones: int,

@@ -36,12 +36,14 @@ cloud, sand3d, blast3d, kh, through app/driver.py and app/performance.py):
 
 - `mara3.chunk`, one chunk (attributes `iteration`, `steps`), holding
 - `mara3.plan` (the chunk planner), `mara3.launch` (the host's enqueue),
-  `mara3.wait` (the host waiting for the device), `mara3.repair` (the
-  safe-mode rewind and retry), `mara3.mark` (float64 time and the schedule
-  marks), `mara3.output` (one output, attribute `task`; inside it
-  `mara3.replay` and `mara3.sample` for a time-series row),
-  `mara3.regrid`, `mara3.tables` (kernel B3's or B6's tables) and
-  `mara3.print` (the progress line);
+  `mara3.wait` (the host waiting for the device; in a fixed-dt loop for
+  the chunk before, after this chunk's launch, or for the chunk in
+  flight, before a host read), `mara3.repair` (the safe-mode rewind and
+  retry), `mara3.mark` (float64 time and the schedule marks),
+  `mara3.output` (one output, attribute `task`; inside it `mara3.replay`
+  and `mara3.sample` for a time-series row), `mara3.regrid`,
+  `mara3.tables` (kernel B3's or B6's tables) and `mara3.print` (the
+  progress line; in a fixed-dt loop the line of the chunk waited for);
 - `mara3.recover`, a sedov row's or diagnostics write's primitive
   recovery of the whole state.
 
@@ -51,10 +53,14 @@ again to reach a due or to rewind a faulted chunk), in binary
 `planned_due_hits` (of those, the chunks whose last step was that due:
 their ratio is the plan's hit share), `outputs.<task>`,
 `retries` (safe-mode retries), `regrids`, `tree_changes`,
-`table_builds`, in binary `geometry_uploads` (the mesh geometry taken
-to the device, once per solver data: the rows and the diagnostics read
-it there) and, wherever the SRHD Newton of physics/srhd.py runs,
-`recover_passes` (its host reads of whether every cell has converged).
+`table_builds`, in the fixed-dt loops `chunks_in_flight` (launches made
+while the chunk before was not yet waited on) and `drains` (waits for
+the chunk in flight before the host reads the state: a task due, a
+regrid, a test of the state, the loop's end), in binary
+`geometry_uploads` (the mesh geometry taken to the device, once per
+solver data: the rows and the diagnostics read it there) and, wherever
+the SRHD Newton of physics/srhd.py runs, `recover_passes` (its host
+reads of whether every cell has converged).
 
 `profile_to` runs a whole subprogram under the profiler and writes its
 Chrome trace and the store's summary (`MARA3_PROFILE_DIR`, app/subprogram).

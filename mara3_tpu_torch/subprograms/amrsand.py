@@ -42,7 +42,7 @@ import torch
 from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
 from mara3_tpu_torch.app.device import resolve_auto, resolve_device
-from mara3_tpu_torch.app.performance import time_execution, timed_launch
+from mara3_tpu_torch.app.performance import time_execution
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
 from mara3_tpu_torch.app.subprogram import register
 from mara3_tpu_torch.kernels import amrsand_step
@@ -288,9 +288,12 @@ def _run_fast(cfg, state: State, tasks) -> State:
     """The chunked loop: each chunk (256, 64, 16, 4 or 1 steps) is one
     advance_n call, planned to land on the next diagnostics due, regrid or
     tfinal (the JAX package's planner, eps and all). Under a profiler the
-    loop records the spans and counters of app/tracing.py."""
+    loop records the spans and counters of app/tracing.py. A chunk is left
+    running on the card while the next is planned and launched; the loop
+    drains it before a diagnostics due, a regrid and its end."""
     rec = tracing.recorder()
     s, schedule = state.solution, state.schedule
+    chunks = driver.ChunksInFlight(rec, s.conserved.device)
     nt = block_layout.build_neighbor_table(s.leaves)
     dxb = block_spacings(s)
     adaptive = cfg.get_int("regrid") != 0
@@ -300,10 +303,13 @@ def _run_fast(cfg, state: State, tasks) -> State:
     dfi = cfg.get_double("dfi")
     while s.time < tfinal - driver.EPS:
         with rec.span("mara3.chunk", iteration=s.iteration):
+            if driver.due_tasks(schedule):
+                chunks.drain()
             with driver.traced_outputs(rec, schedule):
                 state = tasks(State(s, schedule), cfg)
             s, schedule = state.solution, state.schedule
             if adaptive and s.time >= next_regrid:
+                chunks.drain()
                 rec.count("regrids")
                 with rec.span("mara3.regrid"):
                     leaves = s.leaves
@@ -318,14 +324,14 @@ def _run_fast(cfg, state: State, tasks) -> State:
                     dues.append(next_regrid)
                 n_cap = driver.steps_to_next_stop(s.time, dt, tfinal, dues)
                 n = next(c for c in CHUNKS if c <= n_cap)
-            with timed_launch(rec, s.conserved.device) as launch:
+            with chunks.launch():
                 u1 = advance_n(s.conserved, dxb, nt, dt, n)
             s = replace(s, iteration=s.iteration + n, time=s.time + n * dt,
                         conserved=u1)
+            chunks.end(n, s.iteration, s.time, u1.numel(), LAST_PATH)
             schedule = mark_tasks(schedule, s.time,
                                   [("write_diagnostics", dfi)])
-            driver.end_chunk(rec, n, s.iteration, s.time, u1.numel(),
-                             launch.ms, LAST_PATH)
+    chunks.drain()
     return tasks(State(s, schedule), cfg)
 
 

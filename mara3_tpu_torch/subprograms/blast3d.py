@@ -33,7 +33,6 @@ import torch
 from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
 from mara3_tpu_torch.app.device import resolve_device
-from mara3_tpu_torch.app.performance import timed_launch
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
 from mara3_tpu_torch.app.subprogram import register
 from mara3_tpu_torch.mesh import amr3d, euler3d, tree_nd
@@ -172,10 +171,13 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     dt its start sets; `tasks(state, cfg)` writes the diagnostics. Returns
     the final state; raises driver.NonFiniteState if the state is not
     finite after a window, at a write or at the end, or its wavespeed at a
-    window's start."""
+    window's start. The dt of a window is read from the card and each
+    window's state is tested there, so the loop waits for every window
+    before it plans the next."""
     rec = tracing.recorder()
     mesh = state.mesh
     s, schedule = state.solution, state.schedule
+    chunks = driver.ChunksInFlight(rec, s.conserved.device)
     bs = s.conserved.shape[1]
     cfl = cfg.get_double("cfl")
     dx_min = min_spacing(mesh, bs)
@@ -185,6 +187,8 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     num_zones = s.conserved.shape[0] * bs ** 3
     while s.time < tfinal - driver.EPS:
         with rec.span("mara3.chunk", iteration=s.iteration):
+            if driver.due_tasks(schedule):
+                chunks.drain()
             with driver.traced_outputs(rec, schedule):
                 state = tasks(State(s, schedule, mesh), cfg)
             s, schedule = state.solution, state.schedule
@@ -200,15 +204,16 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
                 n = driver.steps_to_next_stop(
                     s.time, dt, tfinal,
                     [schedule.last_performed("write_diagnostics") + dfi])
-            with timed_launch(rec, s.conserved.device) as launch:
+            with chunks.launch():
                 u1 = advance(s.conserved, dt, n)
             s = replace(s, iteration=s.iteration + n, time=s.time + n * dt,
                         conserved=u1)
+            chunks.end(n, s.iteration, s.time, num_zones, f"scheme[{n}]")
+            chunks.wait()
             driver.check_finite("blast3d", [u1], s.iteration, s.time)
             schedule = mark_tasks(schedule, s.time,
                                   [("write_diagnostics", dfi)])
-            driver.end_chunk(rec, n, s.iteration, s.time, num_zones,
-                             launch.ms, f"scheme[{n}]")
+    chunks.drain()
     final = tasks(State(s, schedule, mesh), cfg)
     s = final.solution
     driver.check_finite("blast3d", [s.conserved], s.iteration, s.time)

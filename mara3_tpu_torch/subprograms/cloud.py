@@ -50,7 +50,7 @@ import torch
 from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
 from mara3_tpu_torch.app.device import resolve_auto, resolve_device
-from mara3_tpu_torch.app.performance import time_execution, timed_launch
+from mara3_tpu_torch.app.performance import time_execution
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
 from mara3_tpu_torch.app.subprogram import register
 from mara3_tpu_torch.core import dimensional as dim
@@ -795,10 +795,13 @@ def _run_fast(cfg, state: State, tasks) -> State:
     """The chunked loop (cloud.py:795-890): dt is fixed by the grid, so
     each chunk (64, 16, 4 or 1 steps) is planned to land on the next task
     due or tfinal, and is one advance_n call; the time is a float64 host
-    number, advanced by n dt a chunk."""
+    number, advanced by n dt a chunk. A chunk is left running on the card
+    while the next is planned and launched; the loop waits for it before a
+    task due and drains it at its end."""
     rec = tracing.recorder()
     s = state.solution
     schedule = state.schedule
+    chunks = driver.ChunksInFlight(rec, s.conserved.device)
     dt = grid_dt(s, cfg)
     theta, method, tfloor = _scheme_args(cfg)
     rk = cfg.get_int("rk_order")
@@ -824,17 +827,20 @@ def _run_fast(cfg, state: State, tasks) -> State:
                     t, dt, tfinal, [schedule.last_performed(name) + ivl
                                     for name, ivl in intervals])
                 n = next(c for c in CHUNKS if c <= n_cap)
-            with timed_launch(rec, us.device) as launch:
+            with chunks.launch():
                 us, pz = advance_n(us, pz, t, n, rv, qv, jet, dt, theta,
                                    method, tfloor, rk, multi=multi)
             t += n * dt
             it += n
+            chunks.end(n, it, t, nzones, LAST_PATH)
             schedule = mark_tasks(schedule, t, intervals)
+            if driver.due_tasks(schedule):
+                chunks.wait()
             with driver.traced_outputs(rec, schedule) as due:
                 if due:
                     schedule = tasks(State(solution(), schedule),
                                      cfg).schedule
-            driver.end_chunk(rec, n, it, t, nzones, launch.ms, LAST_PATH)
+    chunks.drain()
     return tasks(State(solution(), mark_tasks(schedule, t, intervals)), cfg)
 
 

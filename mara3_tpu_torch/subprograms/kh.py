@@ -51,7 +51,6 @@ import torch
 from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
 from mara3_tpu_torch.app.device import resolve_device
-from mara3_tpu_torch.app.performance import timed_launch
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
 from mara3_tpu_torch.app.subprogram import register
 from mara3_tpu_torch.schemes import iso2d_grid
@@ -462,9 +461,12 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     advance_n; sharded (shards != 0), each chunk is rounded up to whole
     grains of G steps and is one call of the sharded advance. Prints kzps
     per chunk; returns the final state. Raises driver.NonFiniteState if a
-    write or the end finds the state not finite."""
+    write or the end finds the state not finite. A chunk is left running
+    on the card while the next is planned and launched; the loop drains it
+    before a task due and at its end."""
     rec = tracing.recorder()
     s = state.solution
+    chunks = driver.ChunksInFlight(rec, s.conserved.device)
     n = cfg.get_int("N")
     kw = advance_kwargs(cfg, s.dt)
     sharded = (make_sharded_advance(cfg, s.dt, s.conserved.device)
@@ -475,6 +477,8 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     tfinal = cfg.get_double("tfinal")
     while state.solution.time < tfinal - driver.EPS:
         with rec.span("mara3.chunk", iteration=state.solution.iteration):
+            if driver.due_tasks(state.schedule):
+                chunks.drain()
             with driver.traced_outputs(rec, state.schedule):
                 state = tasks(state, cfg)
             s = state.solution
@@ -488,7 +492,7 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
                     # (tasks fire at the next loop top), as in the JAX package
                     advance, devices, grain = sharded
                     n_run = grain * math.ceil(n_run / grain)
-            with timed_launch(rec, s.conserved.device) as launch:
+            with chunks.launch():
                 if sharded is None:
                     u1 = advance_n(s.conserved, n_run, **kw)
                 else:
@@ -496,14 +500,14 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
                                          devices)
             s = replace(s, iteration=s.iteration + n_run,
                         time=s.time + n_run * s.dt, conserved=u1)
+            chunks.end(n_run, s.iteration, s.time, n * n, LAST_PATH)
             # a chunk planned onto a due can end a round-off short of it
             # (512 steps of dt = 0.3 / 2048 / 1.5 end at 0.05 - 7e-18), so
             # tasks are marked within EPS; marked at s.time, as the JAX
             # package marks them, that output would be skipped
             state = State(s, mark_tasks(state.schedule, s.time + driver.EPS,
                                         intervals))
-            driver.end_chunk(rec, n_run, s.iteration, s.time, n * n,
-                             launch.ms, LAST_PATH)
+    chunks.drain()
     final = tasks(state, cfg)
     s = final.solution
     driver.check_finite("kh", [s.conserved], s.iteration, s.time)

@@ -33,7 +33,6 @@ import torch
 from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
 from mara3_tpu_torch.app.device import resolve_device
-from mara3_tpu_torch.app.performance import timed_launch
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
 from mara3_tpu_torch.app.subprogram import register
 from mara3_tpu_torch.kernels import sand3d_step
@@ -204,10 +203,13 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     """The chunked loop: each inter-output window is one advance call;
     `tasks(state, cfg)` writes the diagnostics. Returns the final state;
     raises driver.NonFiniteState if a write or the end finds the state not
-    finite."""
+    finite. A chunk is left running on the card while the next is planned
+    and launched; the loop drains it before a diagnostics due and at its
+    end."""
     rec = tracing.recorder()
     mesh = state.mesh
     s, schedule = state.solution, state.schedule
+    chunks = driver.ChunksInFlight(rec, s.conserved.device)
     bs = s.conserved.shape[1]
     dt = time_step(mesh, bs)
     advance = make_advance_auto(mesh, bs, VELOCITY, cfg.get_int("kernel"),
@@ -217,6 +219,8 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     num_zones = s.conserved.numel()
     while s.time < tfinal - driver.EPS:
         with rec.span("mara3.chunk", iteration=s.iteration):
+            if driver.due_tasks(schedule):
+                chunks.drain()
             with driver.traced_outputs(rec, schedule):
                 state = tasks(State(s, schedule, mesh), cfg)
             s, schedule = state.solution, state.schedule
@@ -224,14 +228,14 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
                 n = driver.steps_to_next_stop(
                     s.time, dt, tfinal,
                     [schedule.last_performed("write_diagnostics") + dfi])
-            with timed_launch(rec, s.conserved.device) as launch:
+            with chunks.launch():
                 u1 = advance(s.conserved, dt, n)
             s = replace(s, iteration=s.iteration + n, time=s.time + n * dt,
                         conserved=u1)
+            chunks.end(n, s.iteration, s.time, num_zones, LAST_PATH)
             schedule = mark_tasks(schedule, s.time,
                                   [("write_diagnostics", dfi)])
-            driver.end_chunk(rec, n, s.iteration, s.time, num_zones,
-                             launch.ms, LAST_PATH)
+    chunks.drain()
     final = tasks(State(s, schedule, mesh), cfg)
     s = final.solution
     driver.check_finite("sand3d", [s.conserved], s.iteration, s.time)

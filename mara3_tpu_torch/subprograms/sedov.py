@@ -42,7 +42,7 @@ import torch
 from mara3_tpu_torch.app import driver, serialize, tracing
 from mara3_tpu_torch.app.config import ConfigTemplate
 from mara3_tpu_torch.app.device import resolve_auto, resolve_device
-from mara3_tpu_torch.app.performance import time_execution, timed_launch
+from mara3_tpu_torch.app.performance import time_execution
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
 from mara3_tpu_torch.app.subprogram import register
 from mara3_tpu_torch.core import ops
@@ -520,10 +520,14 @@ def setup(argv, *, device=None, dtype=None):
 def _run_fast(cfg, state: State, tasks) -> State:
     """The chunked loop: each chunk (128, 32, 8 or 1 steps) is one
     advance_n call, planned to land on the next task due or tfinal. Under a
-    profiler the loop records the spans and counters of app/tracing.py."""
+    profiler the loop records the spans and counters of app/tracing.py. A
+    chunk is left running on the card while the next is planned and
+    launched; the loop waits for it before a task due and drains it at
+    its end."""
     rec = tracing.recorder()
     s = state.solution
     schedule = state.schedule
+    chunks = driver.ChunksInFlight(rec, s.conserved.device)
     newtonian = cfg.get_int("newtonian") != 0
     dt = grid_dt(s.vertices)
     tfinal = cfg.get_double("tfinal")
@@ -539,18 +543,21 @@ def _run_fast(cfg, state: State, tasks) -> State:
                     t, dt, tfinal, [schedule.last_performed(name) + ivl
                                     for name, ivl in intervals])
                 n = next(c for c in CHUNKS if c <= n_cap)
-            with timed_launch(rec, u.device) as launch:
+            with chunks.launch():
                 u = advance_n(u, s.vertices, dt, newtonian, n, method,
                               theta)
             t += n * dt
             it += n
+            chunks.end(n, it, t, nz, LAST_PATH)
             schedule = mark_tasks(schedule, t, intervals)
+            if driver.due_tasks(schedule):
+                chunks.wait()
             with driver.traced_outputs(rec, schedule) as due:
                 if due:
                     schedule = tasks(State(replace(s, time=t, iteration=it,
                                                    conserved=u), schedule),
                                      cfg).schedule
-            driver.end_chunk(rec, n, it, t, nz, launch.ms, LAST_PATH)
+    chunks.drain()
     final = State(replace(s, time=t, iteration=it, conserved=u),
                   mark_tasks(schedule, t, intervals))
     return tasks(final, cfg)

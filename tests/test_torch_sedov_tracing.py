@@ -7,9 +7,10 @@ the rows and the diagnostics recover through physics/srhd.py.
 - Under torch.profiler, every count is held to one kept apart from the
   tracer: the chunks to the progress lines, `steps` to the iterations
   advanced, `outputs.write_time_series` and `outputs.write_diagnostics`
-  to what the task runner did, each chunk holds one plan, launch, wait and
-  print, and every recovery (`mara3.recover`) reads its Newton's
-  convergence at least once (`recover_passes`).
+  to what the task runner did, each chunk holds one plan and one launch
+  and is waited for and printed once, and every recovery
+  (`mara3.recover`) reads its Newton's convergence at least once
+  (`recover_passes`).
 - The final state is bit for bit the same with the recorder on and off.
 - With no profiler running, a run records nothing.
 """
@@ -113,11 +114,15 @@ def test_the_loop_records_its_spans_and_counters(monkeypatch):
     assert sum(spans[i].attrs["steps"] for i in chunks) == counts["steps"]
     for task in TS.TASKS:
         assert counts.get(f"outputs.{task}", 0) == runner.done[task] > 0
+    # a chunk's wait and line come in a later chunk, or in its own where a
+    # task due drains it, or after the last chunk
     for i in chunks:
         names = Counter(s.name for s in _children(spans, i))
-        assert all(names[n] == 1 for n in ("mara3.plan", "mara3.launch",
-                                           "mara3.wait", "mara3.print"))
+        assert names["mara3.plan"] == names["mara3.launch"] == 1
+        assert names["mara3.print"] <= 1 and names["mara3.wait"] <= 2
         assert names["mara3.output"] <= 1
+    for name in ("mara3.wait", "mara3.print"):
+        assert sum(s.name == name for s in spans) == len(chunks)
     outputs = [s for s in spans if s.name == "mara3.output"]
     assert len(outputs) == sum(
         any(s.name == "mara3.output" for s in _children(spans, i))

@@ -9,8 +9,10 @@ of kh, cloud, sand3d and blast3d.
   tracer: the chunks to the progress lines, the steps to the iterations
   advanced, the rows to the rows added, the replayed steps to a wrapper
   around the scan, the retries and regrids to their lines; each child lies
-  inside its parent, each chunk has one wait, and the span names are among
-  the profiler's events.
+  inside its parent, each chunk is waited for once (in a fixed-dt loop
+  after the next chunk's launch or before a host read) and its line
+  printed after that wait, and the span names are among the profiler's
+  events.
 - MARA3_PROFILE_DIR: an error raised inside a run comes out as itself, a
   profiler that does not start leaves an untraced run, and a clean run
   writes both files.
@@ -202,9 +204,12 @@ def test_untraced_run_records_nothing(monkeypatch, program):
     assert entered == []
 
 
-def _check_tree(spans):
+def _check_tree(spans, in_flight=True):
     """Every child inside its parent; every span in a chunk carries the
-    chunk's iteration; each chunk has exactly one wait."""
+    chunk's iteration; one wait a chunk. Binary's chunk holds its own
+    wait; a fixed-dt loop (`in_flight`) waits for a chunk after its launch,
+    in the same chunk, a later one or after the last, and prints its line
+    after the wait."""
     for s in spans:
         assert s.end_ns is not None and s.start_ns <= s.end_ns
         if s.parent is not None:
@@ -212,19 +217,28 @@ def _check_tree(spans):
             assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns, s.name
             if s.name != tracing.CHUNK:
                 assert s.chunk == p.chunk
-    for i, s in enumerate(spans):
-        if s.name == tracing.CHUNK:
-            assert s.chunk == s.attrs["iteration"]
-            waits = [c for c in spans if c.parent == i
-                     and c.name == "mara3.wait"]
-            assert len(waits) == 1
+    chunks = [i for i, s in enumerate(spans) if s.name == tracing.CHUNK]
+    for i in chunks:
+        assert spans[i].chunk == spans[i].attrs["iteration"]
+        waits = [c for c in spans if c.parent == i
+                 and c.name == "mara3.wait"]
+        assert len(waits) == 1 or (in_flight and len(waits) <= 2)
+    if in_flight:
+        def named(name):
+            return [s for s in spans if s.name == name and (
+                s.parent is None or spans[s.parent].name == tracing.CHUNK)]
+        launches, waits, prints = map(named, ("mara3.launch", "mara3.wait",
+                                              "mara3.print"))
+        assert len(launches) == len(waits) == len(prints) == len(chunks)
+        assert all(w.start_ns >= l.end_ns and p.start_ns >= w.end_ns
+                   for l, w, p in zip(launches, waits, prints))
 
 
 @pytest.mark.parametrize("program", PROGRAMS)
 def test_traced_run_counts_what_the_loop_did(monkeypatch, program):
     run = Run(monkeypatch, program)
     spans, counts, names, _ = traced(run)
-    _check_tree(spans)
+    _check_tree(spans, program != "binary")
     chunks = [s for s in spans if s.name == tracing.CHUNK]
     assert len(chunks) == len(run.progress) > 1
     # each chunk starts where the last progress line left off
@@ -263,7 +277,7 @@ def test_traced_run_counts_what_the_loop_did(monkeypatch, program):
 def test_traced_regrids_and_table_builds(monkeypatch, program):
     run = Run(monkeypatch, program, REGRID[program], kernel=True)
     spans, counts, _, _ = traced(run)
-    _check_tree(spans)
+    _check_tree(spans, program != "binary")
     regrids = [s for s in spans if s.name == "mara3.regrid"]
     assert len(regrids) == counts["regrids"] == run.regrids > 1
     assert all(spans[s.parent].name == tracing.CHUNK for s in regrids)
@@ -293,7 +307,7 @@ def test_chunks_of_more_than_one_b3_launch_stay_off_the_timeline(
     the one-step chunks and their launches, and no longer chunk."""
     run = Run(monkeypatch, "binary", ["multi_launch=1", "tfinal=0.08"])
     spans, _, _, events = traced(run)
-    _check_tree(spans)
+    _check_tree(spans, in_flight=False)
     chunks = [s for s in spans if s.name == tracing.CHUNK]
     short = sum(c.attrs["steps"] == 1 for c in chunks)
     assert 0 < short < len(chunks)
