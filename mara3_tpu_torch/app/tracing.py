@@ -45,7 +45,10 @@ cloud, sand3d, blast3d, kh, through app/driver.py and app/performance.py):
   `mara3.tables` (kernel B3's or B6's tables) and `mara3.print` (the
   progress line; in a fixed-dt loop the line of the chunk waited for);
 - `mara3.recover`, a sedov row's or diagnostics write's primitive
-  recovery of the whole state.
+  recovery of the whole state;
+- in blast3d's octree step (mesh/euler3d.py) `mara3.step`, one step's
+  enqueue, holding a `mara3.guard` (the two guard slabs) and a
+  `mara3.correct` (the level-jump flux correction) for each axis.
 
 Its counters: `steps` (useful steps advanced), `replay_steps` (steps run
 again to reach a due or to rewind a faulted chunk), in binary
@@ -60,7 +63,9 @@ regrid, a test of the state, the loop's end), in binary
 `geometry_uploads` (the mesh geometry taken to the device, once per
 solver data: the rows and the diagnostics read it there) and, wherever
 the SRHD Newton of physics/srhd.py runs, `recover_passes` (its host
-reads of whether every cell has converged).
+reads of whether every cell has converged) and, in blast3d,
+`wavespeed_reads` (its host reads of the maximum wavespeed, one a
+window).
 
 `profile_to` runs a whole subprogram under the profiler and writes its
 Chrome trace and the store's summary (`MARA3_PROFILE_DIR`, app/subprogram).

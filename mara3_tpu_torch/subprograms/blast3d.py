@@ -173,7 +173,9 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
     finite after a window, at a write or at the end, or its wavespeed at a
     window's start. The dt of a window is read from the card and each
     window's state is tested there, so the loop waits for every window
-    before it plans the next."""
+    before it plans the next. Under torch.profiler the counter
+    `wavespeed_reads` counts the host reads of the wavespeed, one a
+    window."""
     rec = tracing.recorder()
     mesh = state.mesh
     s, schedule = state.solution, state.schedule
@@ -195,6 +197,7 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
             with rec.span("mara3.plan"):
                 # dimension-split CFL from the current global max wavespeed
                 a = float(euler3d.max_signal_speed(s.conserved, GAMMA))
+                rec.count("wavespeed_reads")
                 if not math.isfinite(a):
                     raise driver.NonFiniteState(
                         f"blast3d: the maximum wavespeed is {a} (a "

@@ -12,7 +12,9 @@ of kh, cloud, sand3d and blast3d.
   inside its parent, each chunk is waited for once (in a fixed-dt loop
   after the next chunk's launch or before a host read) and its line
   printed after that wait, and the span names are among the profiler's
-  events.
+  events. blast3d's octree step records a `mara3.step` a step with three
+  `mara3.guard` and three `mara3.correct` inside, and its loop one
+  `wavespeed_reads` a window.
 - MARA3_PROFILE_DIR: an error raised inside a run comes out as itself, a
   profiler that does not start leaves an untraced run, and a clean run
   writes both files.
@@ -299,6 +301,42 @@ def test_traced_regrids_and_table_builds(monkeypatch, program):
         # B6's tables are looked up at every launch, built on a miss
         assert len(tables) == len(run.progress)
         assert all(spans[s.parent].name == "mara3.launch" for s in tables)
+
+
+def test_blast3d_records_its_steps_guards_and_wavespeed_reads(monkeypatch):
+    """One `mara3.step` a step advanced, inside the chunk's launch; three
+    `mara3.guard` and three `mara3.correct` inside each step, in turn; one
+    `wavespeed_reads` a window (a chunk, one advance call each)."""
+    run = Run(monkeypatch, "blast3d")
+    spans, counts, names, _ = traced(run)
+    _check_tree(spans)
+    steps = [i for i, s in enumerate(spans) if s.name == "mara3.step"]
+    assert len(steps) == counts["steps"] == \
+        run.final.solution.iteration - run.start > 1
+    assert all(spans[spans[i].parent].name == "mara3.launch" for i in steps)
+    for i in steps:
+        inside = [s.name for s in spans if s.parent == i]
+        assert inside == ["mara3.guard", "mara3.correct"] * 3
+    parts = [s for s in spans if s.name in ("mara3.guard", "mara3.correct")]
+    assert len(parts) == 6 * len(steps)
+    assert all(spans[s.parent].name == "mara3.step" for s in parts)
+    chunks = [s for s in spans if s.name == tracing.CHUNK]
+    assert counts["wavespeed_reads"] == len(chunks) == len(run.progress) > 1
+    assert {"mara3.step", "mara3.guard", "mara3.correct"} <= names
+
+
+def test_blast3d_step_untraced_records_nothing(monkeypatch):
+    from mara3_tpu_torch.mesh import euler3d
+    entered = []
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast",
+                        lambda name, *a, **k: entered.append(name))
+    with contextlib.redirect_stdout(io.StringIO()):
+        cfg, state = blast3d.setup(["blast3d", "depth=2", "block_size=4"],
+                                   device="cpu", dtype=F64)
+    u = state.solution.conserved
+    euler3d.make_advance(state.mesh, 4, blast3d.GAMMA)(u, 1e-3, 3)
+    assert tracing.spans() == [] and tracing.counts() == {}
+    assert entered == []
 
 
 def test_chunks_of_more_than_one_b3_launch_stay_off_the_timeline(
