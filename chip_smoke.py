@@ -10,11 +10,12 @@ exits non-zero and prints no result):
 2. build: compiles mara3_tpu_torch/csrc/binary_advance.cu (kernel B2),
    binary_multi.cu (B3), iso2d_step.cu (B1), sedov_step.cu (B5),
    cloud_update.cu (B4), amrsand_step.cu (B6), sand3d_step.cu (B7),
-   binary_update.cu (B11a, B11b), binary_advance_strips.cu (B11c) and
-   iso2d_ladder.cu (B8, B9, B10a-c), one nvcc each, started together;
-   binary_multi.cu, iso2d_step.cu, iso2d_ladder.cu, amrsand_step.cu and
-   sedov_step.cu with -Xptxas=-v, whose registers and spills for each B3
-   kernel, each column-march kernel (B1's and B9's stage, csrc/
+   binary_update.cu (B11a, B11b), binary_advance_strips.cu (B11c),
+   iso2d_ladder.cu (B8, B9, B10a-c) and octree_euler_step.cu (B12), one
+   nvcc each, started together; binary_multi.cu, iso2d_step.cu,
+   iso2d_ladder.cu, amrsand_step.cu, sedov_step.cu and
+   octree_euler_step.cu with -Xptxas=-v, whose registers and spills for
+   each B3 kernel, each column-march kernel (B1's and B9's stage, csrc/
    iso2d_march.cuh), B6's two kernels and B5's march kernels it prints,
    with the march kernels' shared memory and CTAs an SM, and B6's and B5's
    at the main paths' plans (csrc/resident_loop.cuh);
@@ -199,16 +200,28 @@ exits non-zero and prints no result):
 43. timing at 8192^2 float32, in turns: B8 and its plain version per
    4-step call, beside the bound; B10c and the strips' build beside them;
 44. blast3d card against CPU: ``blast3d depth=3 block_size=8 tfinal=0.06
-   dfi=0.03`` in float64, the same windows, the state at rtol 1e-12;
+   dfi=0.03`` in float64 (kernel B12, csrc/octree_euler_step.cu, on the
+   card; its plain version on the CPU), the same windows, the state at
+   rtol 1e-12;
 45. blast3d main path: ``blast3d depth=4 block_size=16`` with the defaults
    (344 blocks of 16^3, float32, to t = 0.25) through blast3d.setup() and
-   blast3d.run(): the whole-run rate, each window's steps and wall time,
-   the finite end and the drift of the totals (blast3d has no kernel in
-   either package: its step is torch ops on the card);
+   blast3d.run(): every window one B12 call (lines end in
+   ``[cuda_b12[n]]``), its launches counted from 0 (B12's ``launches``
+   in the kernels line), the whole-run rate, each
+   window's steps and wall time, the finite end and the drift of the
+   totals;
 46. benchmarks/bench_blast3d.py's protocol at depths 3 and 4, block 16:
    the marginal rate between 100 and 300 steps at dt = 0.1 dx_min / a0 /
    3, median of 3 pairs, the totals' drift, and a step's device kernels
    and busy share under torch.profiler;
+47. B12 at d4b16: the kernel against its plain version on the card,
+   float64 and float32, n in {1, 3, 17} from a 5% numpy-seeded
+   perturbation of the blast, bit for bit (the largest difference is
+   B12's ``max_abs_err``); then, float32, in turns (plain,
+   kernel, kernel, plain), the kernel's time a step (100-step calls) beside
+   its two bounds (the work model's operations at the float32 peak and
+   the state read and written once a step) and the plain version's time a
+   step, with ptxas's registers and spills of each B12 instance;
 
 then prints one JSON line describing the kernels and, last, the ok line.
 ``--profile PATH`` also writes torch.profiler tables of a d6b96 B2 advance,
@@ -554,7 +567,7 @@ LI_MARGINAL = (20, 420)
 LI_ODD, LI_ODD_TILE = (96, 160), (32, 32)
 LI_ODD_GEOMS = ((1 / 96, 1.0, 1.0, 1.0, 160 / 96, 100.0, 1e-4),
                 (1 / 96, -0.5, -0.75, 1.0, 160 / 96, 100.0, 1e-2))
-# phases 44-46: blast3d (no kernel in either package). Card against CPU at
+# phases 44-46: blast3d (kernel B12 on the card). Card against CPU at
 # tests/test_torch_blast3d.py's run and bar; the main path, BASELINE.md:526-
 # 535's blast3d_d4b16 product run (344 blocks of 16^3 to t = 0.25 with the
 # defaults); benchmarks/bench_blast3d.py's protocol (depths 3 and 4, block
@@ -567,6 +580,13 @@ BLAST_DEPTH, BLAST_BS = 4, 16
 BLAST_BENCH_DEPTHS = (3, 4)
 BLAST_MARGINAL = (100, 300)
 BLAST_DRIFT = 1e-4
+# phase 47: B12's steps against its plain version, its timed call, and its
+# bounds: torch_bench/work/blast3d.json's 332 operations a zone-update at
+# the float32 peak, and the state's 5 values a cell read and written once
+B12_STEPS = (1, 3, 17)
+B12_CALL = 100
+B12_OPS_ZONE = 332
+B12_VALUES_PER_CELL = 10
 
 
 class PhaseError(RuntimeError):
@@ -2820,9 +2840,12 @@ def blast_drift(t0, t1):
 
 
 def blast3d_phases(device, smi):
-    """Phases 44-46 (the blast3d subprogram, torch ops on the card)."""
+    """Phases 44-47 (the blast3d subprogram and its kernel B12); returns
+    the kernels line's entry of B12."""
     import numpy as np
     import torch
+    from mara3_tpu_torch.kernels import _build
+    from mara3_tpu_torch.kernels import euler3d_step as T12
     from mara3_tpu_torch.mesh import euler3d as TE
     from mara3_tpu_torch.subprograms import blast3d as B3
     f64 = torch.float64
@@ -2852,7 +2875,9 @@ def blast3d_phases(device, smi):
     with contextlib.redirect_stdout(io.StringIO()):
         _, start = B3.setup(argv, device=device)
     tot0 = blast_totals(start.mesh, BLAST_BS, start.solution.conserved)
+    T12.advance_n_cuda.launches = 0
     final, log, wall, writes, _, _ = drive_amr(B3, argv, device)
+    b12_launches = T12.advance_n_cuda.launches
     s = final.solution
     u = s.conserved
     check(tuple(u.shape) == (len(final.mesh.leaves),) + (BLAST_BS,) * 3
@@ -2861,10 +2886,10 @@ def blast3d_phases(device, smi):
     check(bool(torch.isfinite(u).all()), "non-finite blast3d")
     check(s.time >= 0.25 - 1e-12, f"blast3d ended at t = {s.time}")
     windows = [(int(m), float(k)) for k, m in re.findall(
-        r"kzps=([0-9.]+) \[scheme\[(\d+)\]\]", log)]
-    check(sum(m for m, _ in windows) == s.iteration,
-          f"windows add up to {sum(m for m, _ in windows)}, not "
-          f"{s.iteration}")
+        r"kzps=([0-9.]+) \[cuda_b12\[(\d+)\]\]", log)]
+    check(sum(m for m, _ in windows) == s.iteration == b12_launches,
+          f"windows add up to {sum(m for m, _ in windows)} steps, B12 "
+          f"launched {b12_launches}, not {s.iteration}")
     defaults = B3.config_template().create()
     due = math.floor(defaults.get_double("tfinal")
                      / defaults.get_double("dfi") + 1e-9) + 1
@@ -2874,7 +2899,8 @@ def blast3d_phases(device, smi):
     check(drift < BLAST_DRIFT, f"blast3d totals drift {drift:.3e}")
     zones = u.shape[0] * BLAST_BS ** 3
     print(f"blast3d main path depth={BLAST_DEPTH} block_size={BLAST_BS} "
-          f"({u.shape[0]} blocks) float32: {s.iteration} steps to t = {s.time:.6f}, {wall:.4f} s "
+          f"({u.shape[0]} blocks) float32: {s.iteration} steps to t = {s.time:.6f} "
+          f"in {b12_launches} B12 launches, {wall:.4f} s "
           f"wall, the {len(writes)} diagnostics copies "
           f"{sum(w for _, w in writes):.4f} s of it; windows (steps, ms): "
           + ", ".join(f"({m}, {m * zones / k:.1f})" for m, k in windows)
@@ -2914,6 +2940,62 @@ def blast3d_phases(device, smi):
               f"{busy / 10 / 1e3:.4f} ms of them "
               f"({100 * busy / 10 / 1e3 / step_ms:.1f}% busy) on {smi}")
     print(f"phase 46: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 47: B12 against its plain version, and timed ----------------
+    t0 = time.perf_counter()
+    for line in kernel_summary("octree_euler_step", _build.ptxas_log_path(
+            "octree_euler_step").read_text()):
+        print(f"ptxas {line}")
+    cfg = B3.config_template().create().update(
+        {"depth": BLAST_DEPTH, "block_size": BLAST_BS})
+    mesh = B3.build_mesh(cfg)
+    rng = np.random.default_rng(0)
+    base = B3.new_solution(cfg, mesh, dtype=f64).conserved
+    base = base * torch.as_tensor(
+        1.0 + 0.05 * rng.uniform(size=tuple(base.shape)))
+    dt = 0.3 * B3.min_spacing(mesh, BLAST_BS) / float(
+        TE.max_signal_speed(base, B3.GAMMA)) / 3.0
+    b12_err = 0.0
+    for dtype in (f64, torch.float32):
+        u = base.to(device=device, dtype=dtype)
+        for n in B12_STEPS:
+            got = T12.advance_n(u, mesh, dt, n, B3.GAMMA)
+            want = T12.advance_n_plain(u, mesh, dt, n, B3.GAMMA)
+            b12_err = max(b12_err, float((got - want).abs().max()))
+            check(torch.equal(got, want),
+                  f"B12 d{BLAST_DEPTH}b{BLAST_BS} {dtype} n = {n}: "
+                  f"{int((got != want).sum())} values differ from the plain "
+                  f"version's, by at most {float((got - want).abs().max())}")
+    u = base.to(device=device, dtype=torch.float32)
+    zones = u.shape[0] * BLAST_BS ** 3
+    p1, k1, k2, p2 = (
+        time_ms(lambda: T12.advance_n_plain(u, mesh, dt, 1, B3.GAMMA), 5),
+        time_ms(lambda: T12.advance_n(u, mesh, dt, B12_CALL, B3.GAMMA), 5)
+        / B12_CALL,
+        time_ms(lambda: T12.advance_n(u, mesh, dt, B12_CALL, B3.GAMMA), 5)
+        / B12_CALL,
+        time_ms(lambda: T12.advance_n_plain(u, mesh, dt, 1, B3.GAMMA), 5))
+    b12_ms, plain_ms = min(k1, k2), min(p1, p2)
+    ops_ms = zones * B12_OPS_ZONE / (2 * F32_OPS_PER_S) * 1e3
+    bytes_ms = (zones * B12_VALUES_PER_CELL * u.element_size()
+                / HBM_BYTES_PER_S * 1e3)
+    print(f"B12 d{BLAST_DEPTH}b{BLAST_BS} ({u.shape[0]} blocks): bit for bit "
+          f"against its plain version on the card, float64 and float32, n "
+          f"in {B12_STEPS}; float32 a step {b12_ms * 1e3:.3f} us (runs "
+          f"{k1 * 1e3:.3f} {k2 * 1e3:.3f}), {100 * max(ops_ms, bytes_ms) / b12_ms:.2f}% "
+          f"of its bound; bounds {ops_ms * 1e3:.3f} us (operations, "
+          f"{B12_OPS_ZONE} a zone-update at 67e12/s), {bytes_ms * 1e3:.3f} us "
+          f"(bytes, the state read and written once); plain version "
+          f"{plain_ms:.4f} ms a step (runs {p1:.4f} {p2:.4f}) on {smi}")
+    print(f"phase 47: {time.perf_counter() - t0:.1f} s")
+    bound_ms = max(ops_ms, bytes_ms)
+    return {"name": "octree_euler_step (B12)", "route": "cuda",
+            "source": "mara3_tpu_torch/csrc/octree_euler_step.cu",
+            "replaces": None, "launches": b12_launches,
+            "max_abs_err": b12_err, "ms": b12_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
 
 
 def main(argv=None) -> int:
@@ -2955,11 +3037,12 @@ def main(argv=None) -> int:
     from mara3_tpu_torch.subprograms import sedov as SD
     sources = ("binary_advance", "binary_multi", "iso2d_step", "sedov_step",
                "cloud_update", "amrsand_step", "sand3d_step",
-               "binary_update", "binary_advance_strips", "iso2d_ladder")
+               "binary_update", "binary_advance_strips", "iso2d_ladder",
+               "octree_euler_step")
     t0 = time.perf_counter()
     # the -Xptxas=-v reports of these, kept beside their libraries
     reported = ("binary_multi", "iso2d_step", "iso2d_ladder", "amrsand_step",
-                "sedov_step")
+                "sedov_step", "octree_euler_step")
     with contextlib.redirect_stdout(io.StringIO()), \
             ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(lambda s: _build.build(s, verbose=s in reported),
@@ -3565,7 +3648,7 @@ def main(argv=None) -> int:
     b11 = variant_phases(device, smi)
     ladder = ladder_phases(device, smi, b1)
     b8 = li_phases(device, smi)
-    blast3d_phases(device, smi)
+    b12 = blast3d_phases(device, smi)
 
     print(json.dumps({"kernels": [
         {"name": "binary_advance (B2)", "route": "cuda",
@@ -3592,7 +3675,7 @@ def main(argv=None) -> int:
          "launches": b5_launches, "max_abs_err": b5_err,
          "ms": b5_ms, "plain_ms": b5_plain_ms, "bound_ms": b5_bnd[0],
          "bound_by": b5_bnd[1], "library_ms": None}, *b4, *b67,
-        *b11, *ladder, b8]}))
+        *b11, *ladder, b8, b12]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -46,9 +46,11 @@ cloud, sand3d, blast3d, kh, through app/driver.py and app/performance.py):
   progress line; in a fixed-dt loop the line of the chunk waited for);
 - `mara3.recover`, a sedov row's or diagnostics write's primitive
   recovery of the whole state;
-- in blast3d's octree step (mesh/euler3d.py) `mara3.step`, one step's
+- in blast3d's octree step (mesh/euler3d.py), where it runs as torch ops
+  (the plain version of kernel B12, on the CPU), `mara3.step`, one step's
   enqueue, holding a `mara3.guard` (the two guard slabs) and a
-  `mara3.correct` (the level-jump flux correction) for each axis.
+  `mara3.correct` (the level-jump flux correction) for each axis; kernel
+  B12 has no per-step host work and records no span.
 
 Its counters: `steps` (useful steps advanced), `replay_steps` (steps run
 again to reach a due or to rewind a faulted chunk), in binary
@@ -65,7 +67,8 @@ solver data: the rows and the diagnostics read it there) and, wherever
 the SRHD Newton of physics/srhd.py runs, `recover_passes` (its host
 reads of whether every cell has converged) and, in blast3d,
 `wavespeed_reads` (its host reads of the maximum wavespeed, one a
-window).
+window) and `octree_kernel_steps` (the steps kernel B12 ran, counted once
+a call with its n: on the card it equals `steps`).
 
 `profile_to` runs a whole subprogram under the profiler and writes its
 Chrome trace and the store's summary (`MARA3_PROFILE_DIR`, app/subprogram).

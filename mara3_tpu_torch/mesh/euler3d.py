@@ -14,25 +14,26 @@ Scheme (first-order in space, forward Euler in time):
   overwrites the coarse side's boundary flux with the 2x2 mean of the fine
   side's per-area HLLE fluxes.
 
-It has no kernel, in either package: the step is torch ops on the state's
-device (gathers, the HLLE, the update). A non-physical state (negative
-density or pressure after recovery) gives NaNs, which the caller's
-finiteness test finds.
+The step is kernels/euler3d_step.py's: kernel B12
+(csrc/octree_euler_step.cu, one launch a step) for a state on a CUDA card,
+its plain version (torch ops: gathers, the HLLE, the update) on the CPU; the
+JAX package has no kernel for it. A non-physical state (negative density or
+pressure after recovery) gives NaNs, which the caller's finiteness test
+finds.
 
-Under torch.profiler (app/tracing.py) each step records a `mara3.step`
-span, and inside it one `mara3.guard` (the two guard slabs) and one
-`mara3.correct` (the level-jump flux correction) an axis; untraced they
-are the tracer's shared null context.
+Under torch.profiler (app/tracing.py) each step of the plain version
+records a `mara3.step` span, and inside it one `mara3.guard` (the two guard
+slabs) and one `mara3.correct` (the level-jump flux correction) an axis;
+untraced they are the tracer's shared null context. The kernel has no
+per-step host work and records no span; its calls count their steps as
+`octree_kernel_steps`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mara3_tpu_torch.app import tracing
-from mara3_tpu_torch.core.ops import scalar_div
-from mara3_tpu_torch.mesh import amr3d
-from mara3_tpu_torch.physics import euler, on_axis
+from mara3_tpu_torch.physics import euler
 
 
 def _spacings(mesh, bs, domain_size, U):
@@ -44,40 +45,14 @@ def _spacings(mesh, bs, domain_size, U):
 
 def make_advance(mesh, bs, gamma_law_index=5.0 / 3.0, domain_size=2.0):
     """(U, dt, steps) -> U: first-order HLLE Euler on the octree with exactly
-    conservative coarse-fine flux correction, as torch ops on U's device and
-    dtype."""
-    g = gamma_law_index
-
-    def face_flux(P, axis, rec):
-        """[B, ..., n + 1 faces along axis, ..., 5] HLLE per-area fluxes,
-        the two guard faces included, then the level-jump correction."""
-        n = P.shape[1]
-        with rec.span("mara3.guard"):
-            lo = amr3d._guard(P, mesh, axis, 0).unsqueeze(axis + 1)
-            hi = amr3d._guard(P, mesh, axis, 1).unsqueeze(axis + 1)
-        Pe = torch.cat([lo, P, hi], dim=axis + 1)
-        F = euler.riemann_hlle(Pe.narrow(axis + 1, 0, n + 1),
-                               Pe.narrow(axis + 1, 1, n + 1), on_axis(axis),
-                               g)
-        with rec.span("mara3.correct"):
-            return amr3d.correct_fluxes(F, axis, mesh)
+    conservative coarse-fine flux correction, on U's device and in its
+    dtype: kernel B12 on a CUDA card, the plain version on the CPU
+    (kernels/euler3d_step.advance_n)."""
+    from mara3_tpu_torch.kernels import euler3d_step
 
     def advance(U, dt, steps):
-        rec = tracing.recorder()
-        inv_dx = scalar_div(1.0, _spacings(mesh, bs, domain_size, U))[
-            :, None, None, None, None]
-        dt_ = torch.full((), dt, dtype=U.dtype, device=U.device)
-        n = U.shape[1]
-        for _ in range(steps):
-            with rec.span("mara3.step"):
-                P = euler.recover_primitive(U, g)
-                dU = 0.0
-                for axis in range(3):
-                    F = face_flux(P, axis, rec)
-                    dU = dU + (F.narrow(axis + 1, 1, n)
-                               - F.narrow(axis + 1, 0, n))
-                U = U - dt_ * inv_dx * dU
-        return U
+        return euler3d_step.advance_n(U, mesh, dt, steps, gamma_law_index,
+                                      domain_size)
 
     return advance
 

@@ -10,8 +10,10 @@ the app framework: config, drift-free schedule, numbered diagnostics with
 Each inter-output window is one advance call. Its dt is frozen for the
 window from one host read of the global maximum wavespeed at its start,
 with the JAX package's ceil(... - eps) step counts, so a float64 run takes
-the JAX package's steps. The step has no kernel in either package: it runs
-as torch ops on the state's device. The state keeps the dtype it was given
+the JAX package's steps. On a CUDA card the step is kernel B12, one launch a
+step (kernels/euler3d_step.py; the JAX package has no kernel for it), on the
+CPU its plain version, torch ops; a window's progress line ends in
+`[cuda_b12[n]]` or `[scheme[n]]`. The state keeps the dtype it was given
 (float32 by default; the tests pass float64); the run's device is the CUDA
 card unless the caller asks for the CPU (app/device.py).
 
@@ -35,6 +37,7 @@ from mara3_tpu_torch.app.config import ConfigTemplate
 from mara3_tpu_torch.app.device import resolve_device
 from mara3_tpu_torch.app.schedule import Schedule, mark_tasks
 from mara3_tpu_torch.app.subprogram import register
+from mara3_tpu_torch.kernels import euler3d_step
 from mara3_tpu_torch.mesh import amr3d, euler3d, tree_nd
 from mara3_tpu_torch.physics import euler
 
@@ -160,7 +163,9 @@ def setup(argv, *, device=None, dtype=None):
           f"{tree_nd.tree_depth(mesh.leaves)}")
     where = (f"on {torch.cuda.get_device_name(device)}"
              if device.type == "cuda" else "on the CPU")
-    print(f"advance: the scheme (torch ops) {where}, "
+    what = ("kernel B12" if device.type == "cuda"
+            else "the scheme (torch ops)")
+    print(f"advance: {what} {where}, "
           f"{str(s.conserved.dtype).replace('torch.', '')}")
     return cfg, State(s, driver.create_schedule(cfg, ["write_diagnostics"]),
                       mesh)
@@ -211,7 +216,8 @@ def run(cfg, state: State, tasks=run_tasks) -> State:
                 u1 = advance(s.conserved, dt, n)
             s = replace(s, iteration=s.iteration + n, time=s.time + n * dt,
                         conserved=u1)
-            chunks.end(n, s.iteration, s.time, num_zones, f"scheme[{n}]")
+            chunks.end(n, s.iteration, s.time, num_zones,
+                       euler3d_step.LAST_PATH)
             chunks.wait()
             driver.check_finite("blast3d", [u1], s.iteration, s.time)
             schedule = mark_tasks(schedule, s.time,

@@ -14,7 +14,8 @@ of kh, cloud, sand3d and blast3d.
   printed after that wait, and the span names are among the profiler's
   events. blast3d's octree step records a `mara3.step` a step with three
   `mara3.guard` and three `mara3.correct` inside, and its loop one
-  `wavespeed_reads` a window.
+  `wavespeed_reads` a window; on the CPU `octree_kernel_steps` stays 0,
+  and on a card (marked `cuda`) it equals `steps`.
 - MARA3_PROFILE_DIR: an error raised inside a run comes out as itself, a
   profiler that does not start leaves an untraced run, and a clean run
   writes both files.
@@ -80,9 +81,11 @@ class Run:
     recorded, the outputs it wrote (by task), the scan's replayed steps and
     the regrids."""
 
-    def __init__(self, monkeypatch, program: str, extra=(), kernel=False):
+    def __init__(self, monkeypatch, program: str, extra=(), kernel=False,
+                 device="cpu"):
         from collections import Counter
         self.program, self.rows_by_runner = program, 0
+        self.device = device
         self.writes, self.replayed, self.regrids = Counter(), [], 0
         if program in FIXED_DT:
             self.argv = FIXED_DT[program][1] + list(extra)
@@ -159,7 +162,8 @@ class Run:
             else:
                 module = FIXED_DT[self.program][0]
                 kw = {} if module is kh else {"dtype": F64}
-                cfg, state = module.setup(self.argv, device="cpu", **kw)
+                cfg, state = module.setup(self.argv, device=self.device,
+                                          **kw)
                 self.start = state.solution.iteration
                 final = module.run(cfg, state, tasks=self.tasks)
         self.final = final
@@ -323,6 +327,35 @@ def test_blast3d_records_its_steps_guards_and_wavespeed_reads(monkeypatch):
     chunks = [s for s in spans if s.name == tracing.CHUNK]
     assert counts["wavespeed_reads"] == len(chunks) == len(run.progress) > 1
     assert {"mara3.step", "mara3.guard", "mara3.correct"} <= names
+
+
+def test_blast3d_plain_step_counts_no_kernel_steps(monkeypatch):
+    """On the CPU the octree step is B12's plain version: the counter of
+    the kernel's steps stays 0 while `steps` counts the run's."""
+    run = Run(monkeypatch, "blast3d")
+    _, counts, _, _ = traced(run)
+    assert counts["steps"] == run.final.solution.iteration - run.start > 1
+    assert counts.get("octree_kernel_steps", 0) == 0
+
+
+@pytest.mark.cuda
+def test_blast3d_on_the_card_counts_every_step_as_a_kernel_step(
+        monkeypatch):
+    """On the card every step is kernel B12's: `octree_kernel_steps`
+    equals `steps`, no step records a host span, and each window's line
+    names the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("kernel B12 runs only on a CUDA card (no GPU here)")
+    run = Run(monkeypatch, "blast3d", device="cuda")
+    spans, counts, _, _ = traced(run)
+    _check_tree(spans)
+    assert counts["octree_kernel_steps"] == counts["steps"] == \
+        run.final.solution.iteration - run.start > 1
+    assert not [s for s in spans if s.name in ("mara3.step", "mara3.guard",
+                                               "mara3.correct")]
+    windows = [line for line in run.lines if PROGRESS.match(line)]
+    assert windows and all(re.search(r"\[cuda_b12\[\d+\]\]$", line)
+                           for line in windows)
 
 
 def test_blast3d_step_untraced_records_nothing(monkeypatch):
