@@ -19,6 +19,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from mara3_tpu_torch.app import tracing
+
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
@@ -94,9 +96,17 @@ def ptxas_log_path(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library of csrc/<name>.cu, building it first if needed."""
+    """The built library of csrc/<name>.cu, building it first if needed.
+    The first load in a process is a `mara3.build` phase span (app/tracing:
+    `kernel` the source's name, `built` whether nvcc ran) and a build
+    counts `kernel_builds`."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        with tracing.phase("mara3.build", kernel=name) as span:
+            built = not library_path(name).exists()
+            lib = ctypes.CDLL(str(build(name)))
+            span.attrs["built"] = built
+        if built:
+            tracing.tally("kernel_builds")
         _loaded[name] = lib
     return lib

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from mara3_tpu_torch.app import tracing
 from mara3_tpu_torch.kernels import binary_multi as BM
 from mara3_tpu_torch.models import two_body_device as tbd
 from mara3_tpu_torch.schemes import binary_scheme
@@ -274,6 +275,9 @@ def make_multi_scan(sd, k_chunk: int = 16):
     after begin_live_binary (subprog_binary_scheme.cpp:882-902), as in the
     per-step path. Faults ride the rows, as in make_fast_scan.
 
+    Under a profiler each launch is a `mara3.call` span (attribute `steps`,
+    app/tracing.py) on the timeline.
+
     Scope: rk_order 1 or 2, plm or pcm (hlle and hllc, both formulations);
     anything else raises NotImplementedError and the driver runs the
     per-step scan."""
@@ -286,6 +290,7 @@ def make_multi_scan(sd, k_chunk: int = 16):
     tables = sd.advance.tables
     pair_rows = {key: binary_scheme.PAIR_TOTALS.index(key)
                  for key in PAIR_FIELDS}
+    rec = tracing.recorder()
 
     def chunk(s, k):
         """One launch of k steps."""
@@ -323,7 +328,8 @@ def make_multi_scan(sd, k_chunk: int = 16):
         parts = []
         while n > 0:
             k = min(k_chunk, n)
-            s, rows = chunk(s, k)
+            with rec.span("mara3.call", steps=k):
+                s, rows = chunk(s, k)
             parts.append(rows)
             n -= k
         return s, torch.cat(parts)

@@ -154,19 +154,19 @@ LAST_PATH = "unset"   # what the last advance_n ran, e.g. cuda_b6[256]
 def kernel_tables(nt, dxb, dt: float) -> amrsand_step.GuardTables:
     """B6's tables for the tree `nt`, spacings dxb and step dt, built once
     per tree: the cache is keyed by the tree's content (never by id(nt), a
-    freed table's id can come back with another tree) and holds one tree."""
-    rec = tracing.recorder()
-    with rec.span("mara3.tables"):
-        digest = hashlib.sha1(b"".join(
-            np.ascontiguousarray(a).tobytes()
-            for a in (nt.case, nt.same_id, nt.coarse_id, nt.coarse_half,
-                      nt.fine_id))).hexdigest()
-        key = (digest, str(dxb.dtype), str(dxb.device), float(dt))
-        if key not in _TABLES_CACHE:
-            rec.count("table_builds")
+    freed table's id can come back with another tree) and holds one tree.
+    A build is a `mara3.tables` phase span (app/tracing.py)."""
+    digest = hashlib.sha1(b"".join(
+        np.ascontiguousarray(a).tobytes()
+        for a in (nt.case, nt.same_id, nt.coarse_id, nt.coarse_half,
+                  nt.fine_id))).hexdigest()
+    key = (digest, str(dxb.dtype), str(dxb.device), float(dt))
+    if key not in _TABLES_CACHE:
+        tracing.tally("table_builds")
+        with tracing.phase("mara3.tables"):
             _TABLES_CACHE.clear()
             _TABLES_CACHE[key] = amrsand_step.guard_tables(nt, dxb, dt)
-        return _TABLES_CACHE[key]
+    return _TABLES_CACHE[key]
 
 
 def advance_n(u0, dxb, nt, dt: float, num_steps: int, kernel=None):
@@ -263,6 +263,7 @@ def apply_regrid(s: Solution, cfg):
 # driver
 # -----------------------------------------------------------------------------
 
+@tracing.phased("mara3.setup")
 def setup(argv, *, device=None, dtype=None):
     """Config and initial state (solution and schedule) of a run, with the
     banner; writes no file. Returns (cfg, state)."""

@@ -883,6 +883,7 @@ def next_state(state: State, sd: SolverData) -> State:
     return State(solution, schedule, state.time_series, cfg)
 
 
+@tracing.phased("mara3.setup")
 def setup(argv, *, device=None, dtype=torch.float32):
     """Config, solver data and initial state of a run, with the banner.
     Returns (cfg, sd, state)."""
@@ -1001,11 +1002,10 @@ def plan_chunk(t_now: float, dts, next_due: float, next_regrid,
 def build_scan(cfg, sd: SolverData):
     """The fast loop's scan: kernel B3 launches of up to multi_launch steps
     when multi_launch > 0 and the configuration is in B3's scope, else the
-    per-step scan."""
+    per-step scan. A `mara3.tables` phase span (app/tracing.py)."""
     from mara3_tpu_torch.schemes import binary_step
-    rec = tracing.recorder()
-    rec.count("table_builds")
-    with rec.span("mara3.tables"):
+    tracing.tally("table_builds")
+    with tracing.phase("mara3.tables"):
         k = cfg.get_int("multi_launch")
         if k > 0:
             try:
@@ -1028,9 +1028,7 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
     the first chunk boundary after they come due. With regrid=1 a chunk
     also stops at the next regrid, and a regrid that changes the tree
     rebuilds the scan (B3's tables) on the new solver data. Under a
-    profiler the loop records the spans and counters of app/tracing.py; a
-    chunk of more than one B3 launch keeps its spans off the profiler's
-    timeline (app/tracing.py says why)."""
+    profiler the loop records the spans and counters of app/tracing.py."""
     import time as _time
 
     from mara3_tpu_torch.schemes import binary_step
@@ -1048,7 +1046,6 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
         ("write_diagnostics", cfg.get_double("dfi") * 2 * math.pi),
         ("record_time_series", tsi_t)]
     retry_step = None                      # built when a fault needs it
-    k_launch = cfg.get_int("multi_launch")
     regrid_on = cfg.get_int("regrid") != 0
     rgi_t = cfg.get_double("rgi") * 2 * math.pi
 
@@ -1090,7 +1087,7 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
     next_regrid = t_now + rgi_t
     dts = None                             # recent steps' dt, for the plan
     while t_now < tfinal_t:
-        with rec.span("mara3.chunk", False, iteration=iteration):
+        with rec.span("mara3.chunk", iteration=iteration):
             if regrid_on and t_now >= next_regrid:
                 rec.count("regrids")
                 with rec.span("mara3.regrid"):
@@ -1118,82 +1115,83 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
 
             t0 = _time.perf_counter()
             s_prev = s
-            # a chunk of one B3 launch goes on the profiler's timeline; a
-            # longer one stays in the store only (app/tracing.py)
-            one_launch = k_launch <= 0 or n <= k_launch
-            if one_launch:
-                rec.put_on_timeline()
-            with rec.span("mara3.launch", one_launch):
+            with rec.span("mara3.launch"):
                 s, rows = scan_steps(s, n)
             with rec.span("mara3.wait"):
                 rows = rows.cpu().numpy()      # the chunk's one device read
             ms = (_time.perf_counter() - t0) * 1e3
 
-            if rows[:, IX["invalid"]].any():
-                with rec.span("mara3.repair", one_launch):
-                    s, rows = repair(s_prev, rows)
+            # the host's work on the read rows, in one span so that no
+            # idle gap of the device falls between spans
+            with rec.span("mara3.post"):
+                if rows[:, IX["invalid"]].any():
+                    with rec.span("mara3.repair"):
+                        s, rows = repair(s_prev, rows)
 
-            with rec.span("mara3.mark"):
-                # the time accumulates in the run's dtype on the device; a
-                # float32 run takes it back each chunk from a float64 sum of
-                # the dt used (the reference carries time in double)
-                t_f64 += float(rows[:, IX["dt"]].astype(np.float64).sum())
-                # the plan's dt: this chunk's and the step before it
-                dts = (rows[:, IX["dt"]] if dts is None else
-                       np.concatenate([dts[-1:], rows[:, IX["dt"]]]))
-                t_start = float(rows[-1, IX["time"]])
-                if s["time"].dtype == torch.float32:
-                    t_start = float(np.float32(t_f64))
-                    s = {**s, "time": torch.full(
-                        (), t_start, dtype=torch.float32,
-                        device=s["time"].device)}
+                with rec.span("mara3.mark"):
+                    # the time accumulates in the run's dtype on the device;
+                    # a float32 run takes it back each chunk from a float64
+                    # sum of the dt used (the reference carries time in
+                    # double)
+                    t_f64 += float(rows[:, IX["dt"]].astype(np.float64).sum())
+                    # the plan's dt: this chunk's and the step before it
+                    dts = (rows[:, IX["dt"]] if dts is None else
+                           np.concatenate([dts[-1:], rows[:, IX["dt"]]]))
+                    t_start = float(rows[-1, IX["time"]])
+                    if s["time"].dtype == torch.float32:
+                        t_start = float(np.float32(t_f64))
+                        s = {**s, "time": torch.full(
+                            (), t_start, dtype=torch.float32,
+                            device=s["time"].device)}
 
-                due_steps = []
-                for i, row in enumerate(rows):
-                    schedule = mark_tasks(schedule, float(row[IX["time"]]),
-                                          intervals)
-                    if schedule.is_due("record_time_series"):
-                        due_steps.append(i)
-                        schedule = schedule.mark_as_completed(
-                            "record_time_series")
-            if to_due and due_steps[:1] == [len(rows) - 1]:
-                rec.count("planned_due_hits")
-            # sample the whole state at each due step (the reference records
-            # the current solution, subprog_binary.cpp:358-378): the last
-            # step's state is s; earlier dues replay from the chunk head
-            s_cursor, done = s_prev, 0
-            for i in due_steps:
-                rec.count("outputs.record_time_series")
-                with rec.span("mara3.output", one_launch,
-                              task="record_time_series"):
-                    if i == len(rows) - 1:
-                        s_due = s
-                    else:
-                        with rec.span("mara3.replay", one_launch):
-                            s_cursor, _ = replay(s_cursor, i + 1 - done)
-                        done = i + 1
-                        s_due = s_cursor
-                    with rec.span("mara3.sample"):
-                        ts = ts + (time_series_sample(s_due, sd),)
+                    due_steps = []
+                    for i, row in enumerate(rows):
+                        schedule = mark_tasks(
+                            schedule, float(row[IX["time"]]), intervals)
+                        if schedule.is_due("record_time_series"):
+                            due_steps.append(i)
+                            schedule = schedule.mark_as_completed(
+                                "record_time_series")
+                if to_due and due_steps[:1] == [len(rows) - 1]:
+                    rec.count("planned_due_hits")
+                # sample the whole state at each due step (the reference
+                # records the current solution, subprog_binary.cpp:358-378):
+                # the last step's state is s; earlier dues replay from the
+                # chunk head
+                s_cursor, done = s_prev, 0
+                for i in due_steps:
+                    rec.count("outputs.record_time_series")
+                    with rec.span("mara3.output",
+                                  task="record_time_series"):
+                        if i == len(rows) - 1:
+                            s_due = s
+                        else:
+                            with rec.span("mara3.replay"):
+                                s_cursor, _ = replay(s_cursor, i + 1 - done)
+                            done = i + 1
+                            s_due = s_cursor
+                        with rec.span("mara3.sample"):
+                            ts = ts + (time_series_sample(s_due, sd),)
 
-            due = [task for task in ("write_diagnostics", "write_checkpoint")
-                   if schedule.is_due(task)]
-            if due:
-                for task in due:
-                    rec.count(f"outputs.{task}")
-                with rec.span("mara3.output", task="+".join(due)):
-                    st = tasks(State(binary_step.arrays_to_solution(
-                        s, Solution), schedule, ts, cfg), sd)
-                schedule, ts = st.schedule, st.time_series
+                due = [task for task in ("write_diagnostics",
+                                         "write_checkpoint")
+                       if schedule.is_due(task)]
+                if due:
+                    for task in due:
+                        rec.count(f"outputs.{task}")
+                    with rec.span("mara3.output", task="+".join(due)):
+                        st = tasks(State(binary_step.arrays_to_solution(
+                            s, Solution), schedule, ts, cfg), sd)
+                    schedule, ts = st.schedule, st.time_series
 
-            t_now = float(rows[-1, IX["time"]])
-            iteration = int(rows[-1, IX["iteration"]])
+                t_now = float(rows[-1, IX["time"]])
+                iteration = int(rows[-1, IX["iteration"]])
+                with rec.span("mara3.print"):
+                    print(f"[{iteration:04d}] "
+                          f"orbits={t_now / (2 * math.pi):3.7f} "
+                          f"kzps={n * num_zones / max(ms, 1e-12):3.2f}")
             rec.count("steps", len(rows))
             rec.annotate(steps=len(rows))
-            with rec.span("mara3.print"):
-                print(f"[{iteration:04d}] "
-                      f"orbits={t_now / (2 * math.pi):3.7f} "
-                      f"kzps={n * num_zones / max(ms, 1e-12):3.2f}")
 
     state = State(binary_step.arrays_to_solution(s, Solution), schedule, ts,
                   cfg)

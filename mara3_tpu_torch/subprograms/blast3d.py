@@ -150,6 +150,7 @@ def min_spacing(mesh, bs) -> float:
     return 2.0 / (1 << (tree_nd.tree_depth(mesh.leaves) - 1)) / bs
 
 
+@tracing.phased("mara3.setup")
 def setup(argv, *, device=None, dtype=None):
     """Config and initial state (solution, schedule and mesh) of a run, with
     the banner; writes no file. Returns (cfg, state)."""

@@ -425,6 +425,7 @@ def create_state(cfg, *, device="cpu", dtype=None) -> Solution:
     return Solution(0, 0.0, fixed_timestep(cfg, u0), u0)
 
 
+@tracing.phased("mara3.setup")
 def setup(argv, *, device=None, dtype=None):
     """Config and initial state (solution and schedule) of a run, with the
     banner; writes no file. Returns (cfg, state)."""

@@ -178,6 +178,7 @@ def time_step(mesh, bs) -> float:
     return 0.5 * dx_min / sum(VELOCITY)
 
 
+@tracing.phased("mara3.setup")
 def setup(argv, *, device=None, dtype=None):
     """Config and initial state (solution, schedule and mesh) of a run, with
     the banner; writes no file. Returns (cfg, state)."""

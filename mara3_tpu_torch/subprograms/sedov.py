@@ -496,6 +496,7 @@ def _intervals(cfg):
             ("write_time_series", cfg.get_double("tsi"))]
 
 
+@tracing.phased("mara3.setup")
 def setup(argv, *, device=None, dtype=None):
     """Config and initial state (solution and schedule) of a run, with the
     banner; writes no file. Returns (cfg, state)."""

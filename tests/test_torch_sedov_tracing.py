@@ -141,7 +141,9 @@ def test_the_loop_records_its_spans_and_counters(monkeypatch):
 
 def test_the_recorder_leaves_the_state_bit_for_bit(monkeypatch):
     untraced, _, lines, _ = _run(monkeypatch, traced=False)
-    assert tracing.spans() == [] and tracing.counts() == {}
+    # untraced, the store keeps only the set-up's phase span
+    assert [s.name for s in tracing.spans()] == ["mara3.setup"]
+    assert tracing.counts() == {}
     traced, _, traced_lines, _ = _run(monkeypatch, traced=True)
     assert torch.equal(untraced.solution.conserved, traced.solution.conserved)
     assert untraced.solution.time == traced.solution.time
@@ -159,4 +161,6 @@ def test_a_recovery_counts_its_passes():
     # at rest, the Newton from p = 0 converges in two updates: one pass,
     # then the read that finds every cell done
     assert tracing.counts()["recover_passes"] == 2
-    assert [s.name for s in tracing.spans()] == ["mara3.recover"]
+    # the set-up's phase span, kept with no profiler, then the recovery
+    assert [s.name for s in tracing.spans()] == ["mara3.setup",
+                                                 "mara3.recover"]

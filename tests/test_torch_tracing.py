@@ -3,8 +3,8 @@ counters of its fast driver loops, on the CPU with fast_step=1: binary's
 and amrsand's at depth 3 / block 16, and tiny runs of the fixed-dt loops
 of kh, cloud, sand3d and blast3d.
 
-- With no profiler running, a run records nothing and never opens a
-  profiler range.
+- With no profiler running, a run records only its set-up's phase spans
+  and counters, and never opens a profiler range.
 - Under torch.profiler, every count is held to one kept apart from the
   tracer: the chunks to the progress lines, the steps to the iterations
   advanced, the rows to the rows added, the replayed steps to a wrapper
@@ -188,8 +188,14 @@ def traced(run: Run):
     return tracing.spans(), tracing.counts(), set(events), events
 
 
+PHASES = {"mara3.setup", "mara3.build", "mara3.tables"}
+
+
 @pytest.mark.parametrize("program", PROGRAMS)
-def test_untraced_run_records_nothing(monkeypatch, program):
+def test_untraced_run_records_only_phase_spans(monkeypatch, program):
+    """Without a profiler the store keeps the set-up's phase spans and
+    counters (one `mara3.setup`; binary's `mara3.tables`, one a run) and
+    none of the loop's, and no profiler range is opened."""
     entered = []
 
     class StandIn:
@@ -206,7 +212,14 @@ def test_untraced_run_records_nothing(monkeypatch, program):
     monkeypatch.setattr(torch.profiler, "record_function", StandIn)
     run = Run(monkeypatch, program)()
     assert run.progress and run.final.solution.iteration > run.start
-    assert tracing.spans() == [] and tracing.counts() == {}
+    spans = tracing.spans()
+    assert {s.name for s in spans} <= PHASES
+    assert [s.name for s in spans].count("mara3.setup") == 1
+    assert all(s.end_ns is not None for s in spans)
+    assert set(tracing.counts()) <= {"kernel_builds", "table_builds"}
+    if program == "binary":
+        assert tracing.counts()["table_builds"] == \
+            [s.name for s in spans].count("mara3.tables") == 1
     assert entered == []
 
 
@@ -302,8 +315,9 @@ def test_traced_regrids_and_table_builds(monkeypatch, program):
                    and spans[s.parent].name == "mara3.regrid"
                    for s in tables) == changes
     else:
-        # B6's tables are looked up at every launch, built on a miss
-        assert len(tables) == len(run.progress)
+        # B6's tables are looked up at every launch and built, a span each
+        # build, on a miss: the first launch's and each new tree's
+        assert len(tables) == counts["table_builds"] < len(run.progress)
         assert all(spans[s.parent].name == "mara3.launch" for s in tables)
 
 
@@ -368,22 +382,31 @@ def test_blast3d_step_untraced_records_nothing(monkeypatch):
                                    device="cpu", dtype=F64)
     u = state.solution.conserved
     euler3d.make_advance(state.mesh, 4, blast3d.GAMMA)(u, 1e-3, 3)
-    assert tracing.spans() == [] and tracing.counts() == {}
+    # the set-up's phase span, and nothing of the steps
+    assert [s.name for s in tracing.spans()] == ["mara3.setup"]
+    assert tracing.counts() == {}
     assert entered == []
 
 
-def test_chunks_of_more_than_one_b3_launch_stay_off_the_timeline(
+def test_chunks_of_more_than_one_b3_launch_go_on_the_timeline(
         monkeypatch):
-    """With one step a B3 launch (its plain version), the profiler sees
-    the one-step chunks and their launches, and no longer chunk."""
+    """With one step a B3 launch (its plain version), every chunk, the
+    longer ones of several launches included, is on the profiler's
+    timeline with its plan, its launch, a `mara3.call` a step, its
+    post-read work and the rows' outputs: every span of the store is an
+    event of the profiler."""
+    from collections import Counter
     run = Run(monkeypatch, "binary", ["multi_launch=1", "tfinal=0.08"])
     spans, _, _, events = traced(run)
     _check_tree(spans, in_flight=False)
     chunks = [s for s in spans if s.name == tracing.CHUNK]
-    short = sum(c.attrs["steps"] == 1 for c in chunks)
-    assert 0 < short < len(chunks)
-    assert events["mara3.chunk"] == events["mara3.launch"] == short
-    assert events["mara3.plan"] == len(chunks)
+    assert sum(c.attrs["steps"] > 1 for c in chunks) > 0
+    assert events["mara3.chunk"] == events["mara3.launch"] == \
+        events["mara3.plan"] == len(chunks)
+    assert {k: v for k, v in events.items() if k.startswith("mara3.")} \
+        == Counter(s.name for s in spans)
+    assert {"mara3.call", "mara3.post", "mara3.output"} <= set(events)
+    assert all(s.attrs["steps"] == 1 for s in spans if s.name == "mara3.call")
 
 
 def test_summary_takes_the_union_of_the_children():
@@ -443,7 +466,7 @@ def test_profile_dir_runs_untraced_when_the_profiler_does_not_start(
     assert code == 0
     said = [line for line in out.splitlines() if "profiler" in line]
     assert len(said) == 1 and "untraced" in said[0]
-    assert tracing.spans() == []
+    assert {s.name for s in tracing.spans()} == {"mara3.setup"}
     assert not (tmp_path / "profile").exists()
 
 
@@ -457,8 +480,224 @@ def test_profile_dir_writes_the_trace_and_the_spans(monkeypatch, tmp_path):
     assert {"mara3.chunk", "mara3.launch", "mara3.wait"} <= events
     summary = json.loads((tmp_path / "profile" / "amrsand.spans.json")
                          .read_text())
+    # no card, no device events: no idle gap to put down to a span
+    assert summary["idle_by_span"] == []
+    assert summary["spans"]["mara3.setup"]["count"] == 1
     chunk = summary["spans"]["mara3.chunk"]
     assert chunk["count"] == progress
     assert 0 < chunk["self_ms"] <= chunk["total_ms"]
     assert summary["counts"]["steps"] == 32
     assert summary["counts"]["outputs.write_diagnostics"] == 3
+
+
+def test_the_tracer_stands_on_record_function_fast():
+    """Every span on the timeline is a `torch._C._profiler.
+    _RecordFunctionFast` range, a private name of PyTorch: a PyTorch that
+    lacks it or records it as something else breaks every traced run."""
+    fast = getattr(getattr(torch._C, "_profiler", None),
+                   "_RecordFunctionFast", None)
+    assert fast is not None, (
+        "app/tracing.py opens its spans as torch._C._profiler."
+        "_RecordFunctionFast ranges, which this PyTorch lacks")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.recorder().span("mara3.footing"):
+            pass
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.name() == "mara3.footing"]
+    assert len(events) == 1, (
+        "a torch._C._profiler._RecordFunctionFast range no longer shows as "
+        "a host event of the profiler")
+    assert [s.name for s in tracing.spans()] == ["mara3.footing"]
+
+
+def _fake_build(monkeypatch, tmp_path):
+    """kernels/_build with its libraries under tmp_path, a build that only
+    writes the library's file (and counts itself) and a loader that opens
+    nothing."""
+    from mara3_tpu_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_loaded", {})
+    builds = []
+
+    def build(name, verbose=False):
+        path = _build.library_path(name)
+        if not path.exists():
+            builds.append(name)
+            path.write_bytes(b"")
+        return path
+
+    monkeypatch.setattr(_build, "build", build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: ("lib", path))
+    return _build, builds
+
+
+def test_build_span_says_whether_nvcc_ran(monkeypatch, tmp_path):
+    """Without a profiler: the first load of a library is a `mara3.build`
+    span with `built` true when it had to be built and counts
+    `kernel_builds`; a process that finds the library loads it (`built`
+    false, no count); a second load in the process records nothing."""
+    _build, builds = _fake_build(monkeypatch, tmp_path)
+    assert not torch._C._autograd._profiler_enabled()
+    _build.load("binary_multi")
+    _build.load("binary_multi")
+    monkeypatch.setattr(_build, "_loaded", {})      # a new process
+    _build.load("binary_multi")
+    spans = tracing.spans()
+    assert builds == ["binary_multi"]
+    assert [(s.name, s.attrs) for s in spans] == [
+        ("mara3.build", {"kernel": "binary_multi", "built": True}),
+        ("mara3.build", {"kernel": "binary_multi", "built": False})]
+    assert all(s.end_ns is not None and s.parent is None for s in spans)
+    assert tracing.counts() == {"kernel_builds": 1}
+
+
+def test_phase_spans_go_on_the_timeline_under_a_profiler(monkeypatch,
+                                                         tmp_path):
+    """Under a profiler a phase span is a profiler range too, and a build
+    inside the set-up is its child."""
+    from torch.profiler import ProfilerActivity, profile
+    _build, _ = _fake_build(monkeypatch, tmp_path)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.phase("mara3.setup"):
+            _build.load("sedov_step")
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert names.count("mara3.setup") == names.count("mara3.build") == 1
+    setup, build = tracing.spans()
+    assert (setup.name, build.name, build.parent) == \
+        ("mara3.setup", "mara3.build", 0)
+
+
+MS = 1_000_000
+
+
+def _synthetic_store():
+    """A chunk (off the timeline, store only) from 0 to 100 ms, holding a
+    launch (1-10 ms) with one B3 call (2-9 ms) inside and a row's output
+    (50-60 ms); a second chunk from 100 to 130 ms; nothing after."""
+    S = tracing.Span
+    return [S("mara3.chunk", 0, 100 * MS, None, 0, {"iteration": 0}),
+            S("mara3.launch", 1 * MS, 10 * MS, 0, 0, {}),
+            S("mara3.call", 2 * MS, 9 * MS, 1, 0, {"steps": 16}),
+            S("mara3.output", 50 * MS, 60 * MS, 0, 0, {"task": "row"}),
+            S("mara3.chunk", 100 * MS, 130 * MS, None, 22,
+              {"iteration": 22})]
+
+
+def test_idle_by_span_labels_each_gap_by_its_innermost_span():
+    """Gaps between the device's events, on the profiler's clock (here the
+    store's plus 5 s), put down to the innermost span over their middle: a
+    gap in the B3 call, one in the chunk's own glue (the chunk off the
+    timeline), one in the output, one in the next chunk, one after every
+    span; gaps under 5 us and overlapping events are not gaps."""
+    offset = 5 * 10**9
+
+    def on(a_ms, b_ms):                 # an event on the profiler's clock
+        return ("kernel", (a_ms * MS + offset) * 1e-9,
+                (b_ms * MS + offset) * 1e-9)
+
+    device = [on(0, 3), on(2.5, 4),     # overlapping: busy 0-4
+              on(8, 20),                # gap 4-8 (middle 6): the call
+              on(30, 52),               # gap 20-30 (middle 25): the chunk
+              on(58, 110),              # gap 52-58 (middle 55): the output
+              on(110.002, 115),         # 2 us: no gap
+              on(125, 140),             # gap 115-125: the second chunk
+              on(150, 151)]             # gap 140-150: no span
+    store = _synthetic_store()
+    got = tracing.idle_by_span(device, store, offset)
+    assert [row[0] for row in got] == ["mara3.chunk", tracing.NO_SPAN,
+                                       "mara3.output", "mara3.call"]
+    by = {row[0]: row[1:] for row in got}
+    assert by["mara3.chunk"][0] == pytest.approx(0.020, abs=1e-9)
+    assert by["mara3.chunk"][1] == 2
+    assert by["mara3.call"] == [pytest.approx(0.004, abs=1e-9), 1]
+    assert by["mara3.output"] == [pytest.approx(0.006, abs=1e-9), 1]
+    assert by[tracing.NO_SPAN] == [pytest.approx(0.010, abs=1e-9), 1]
+    # each gap alone, between the two events around it, in time order
+    gaps = [(on(2.5, 4), on(8, 20)), (on(8, 20), on(30, 52)),
+            (on(30, 52), on(58, 110)), (on(110.002, 115), on(125, 140)),
+            (on(125, 140), on(150, 151))]
+    assert [tracing.idle_by_span(list(g), store, offset)[0][0]
+            for g in gaps] == ["mara3.call", "mara3.chunk", "mara3.output",
+                               "mara3.chunk", tracing.NO_SPAN]
+    # a span still open covers every gap after its start
+    still_open = [*store[:4], store[4]._replace(end_ns=None)]
+    assert tracing.idle_by_span(device, still_open, offset)[0] == [
+        "mara3.chunk", pytest.approx(0.030, abs=1e-9), 3]
+    # with no store, every gap is outside any span
+    assert tracing.idle_by_span(device, [], offset) == [
+        [tracing.NO_SPAN, pytest.approx(0.040, abs=1e-9), 5]]
+
+
+def test_spans_on_the_timeline_map_onto_the_profilers_clock(monkeypatch):
+    """Under the CPU profiler every span of a short binary run (the
+    set-up, the tables, the loop's spans, each B3 call) is a profiler event
+    of its name, and each maps onto its event, the n-th span of a name onto
+    the n-th event, within 50 us at both ends. A preempted stamp can miss
+    by a time slice, so the run may be made three times; a mapping that is
+    off misses every time."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+    worst = []
+    run = Run(monkeypatch, "binary", ["multi_launch=1", "tfinal=0.03"])
+    for _ in range(3):
+        tracing.clear()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            run()
+        events = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.name().startswith("mara3."):
+                events.setdefault(e.name(), []).append(
+                    (e.start_ns(), e.start_ns() + e.duration_ns()))
+        events = {k: sorted(v) for k, v in events.items()}
+        spans = tracing.spans()
+        # every span is on the timeline, none is left off it
+        assert Counter(s.name for s in spans) == \
+            Counter({k: len(v) for k, v in events.items()})
+        assert {"mara3.setup", "mara3.tables", "mara3.chunk", "mara3.call",
+                "mara3.output"} <= set(events)
+        misses, seen = [], Counter()
+        for s in spans:
+            start, end = events[s.name][seen[s.name]]
+            seen[s.name] += 1
+            misses.append(max(abs(start - tracing.profiler_ns(s.start_ns)),
+                              abs(end - tracing.profiler_ns(s.end_ns))))
+        worst.append(max(misses))
+        if worst[-1] <= 50_000:
+            break
+    assert min(worst) <= 50_000, worst
+
+
+def test_each_b3_call_is_a_span_on_the_timeline(monkeypatch):
+    """With 2 steps a B3 launch (its plain version), every call of the
+    scan is a `mara3.call` (attribute `steps`) on the profiler's timeline:
+    inside the chunk's launch, calls of 2 steps and a shorter last one
+    that add up to the chunk's steps; inside a replay or a repair, the
+    replayed steps."""
+    run = Run(monkeypatch, "binary", ["multi_launch=2", "tfinal=0.08"])
+    spans, counts, _, events = traced(run)
+    _check_tree(spans, in_flight=False)
+    calls = [s for s in spans if s.name == "mara3.call"]
+    assert events["mara3.call"] == len(calls) > 0
+    parent = {i: spans[s.parent].name for i, s in enumerate(spans)
+              if s.name == "mara3.call"}
+    assert set(parent.values()) <= {"mara3.launch", "mara3.replay",
+                                    "mara3.repair"}
+    assert sum(s.attrs["steps"] for i, s in enumerate(spans)
+               if parent.get(i) in ("mara3.replay", "mara3.repair")) == \
+        counts["replay_steps"]
+    chunks = [i for i, s in enumerate(spans) if s.name == tracing.CHUNK]
+    longer = 0
+    for c in chunks:
+        launch = next(i for i, s in enumerate(spans)
+                      if s.parent == c and s.name == "mara3.launch")
+        steps = [s.attrs["steps"] for s in spans if s.parent == launch]
+        assert steps and all(k == 2 for k in steps[:-1]) and \
+            1 <= steps[-1] <= 2
+        longer += len(steps) > 1
+        repaired = any(s.name == "mara3.repair" and
+                       spans[s.parent].parent == c for s in spans)
+        if not repaired:
+            assert sum(steps) == spans[c].attrs["steps"]
+    assert longer > 0
