@@ -62,13 +62,17 @@ cloud, sand3d, blast3d, kh, through app/driver.py and app/performance.py):
   in binary a `mara3.call` inside it for each B3 call, attribute
   `steps`), `mara3.wait` (the host waiting for the device; in a fixed-dt
   loop for the chunk before, after this chunk's launch, or for the chunk
-  in flight, before a host read), in binary `mara3.post` (the host's work
-  on the read rows, holding the repair, mark, outputs and print),
+  in flight, before a host read; in binary the read of its own rows),
+  in binary `mara3.post` (the host's work on the read rows, holding the
+  repair, mark, outputs and print; after this chunk's launch, the chunk
+  before's row and print when that chunk went ahead),
   `mara3.repair` (the safe-mode rewind and retry), `mara3.mark` (float64
   time and the schedule marks), `mara3.output` (one output, attribute
   `task`; inside it `mara3.replay` and `mara3.sample` for a time-series
-  row), `mara3.regrid`, `mara3.tables` and `mara3.print` (the progress
-  line; in a fixed-dt loop the line of the chunk waited for);
+  row; a row that binary reads after the next launch has a second
+  `mara3.sample`, its enqueue, in its own chunk's post), `mara3.regrid`,
+  `mara3.tables` and `mara3.print` (the progress line; in a fixed-dt
+  loop the line of the chunk waited for);
 - `mara3.recover`, a sedov row's or diagnostics write's primitive
   recovery of the whole state;
 - in blast3d's octree step (mesh/euler3d.py), where it runs as torch ops
@@ -83,10 +87,11 @@ again to reach a due or to rewind a faulted chunk), in binary
 `planned_due_hits` (of those, the chunks whose last step was that due:
 their ratio is the plan's hit share), `outputs.<task>`,
 `retries` (safe-mode retries), `regrids`, `tree_changes`,
-in the fixed-dt loops `chunks_in_flight` (launches made
-while the chunk before was not yet waited on) and `drains` (waits for
-the chunk in flight before the host reads the state: a task due, a
-regrid, a test of the state, the loop's end), in binary
+in the fixed-dt loops and binary's `chunks_in_flight` (launches made
+while the chunk before was not yet waited on, in binary not yet ended on
+the host) and `drains` (waits for the chunk in flight before the host
+reads the state: a task due, a regrid, a test of the state, the loop's
+end; in binary also a fault and a due inside the chunk), in binary
 `geometry_uploads` (the mesh geometry taken to the device, once per
 solver data: the rows and the diagnostics read it there) and, wherever
 the SRHD Newton of physics/srhd.py runs, `recover_passes` (its host

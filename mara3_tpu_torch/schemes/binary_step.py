@@ -63,21 +63,49 @@ def solution_to_arrays(sol, dtype=None, device=None) -> dict:
     return s
 
 
+class HostValues:
+    """host_values(s, extra) in two halves. Made, it enqueues the device's
+    part: the fields joined into one tensor and widened to float64 and, on
+    a card, its copy into pinned host memory behind a CUDA event; it reads
+    nothing. `result()` waits for that copy and returns host_values's dict.
+    Work enqueued on the stream in between (the fast loop's next chunk)
+    does not delay the result, and the state `s` it was made from is
+    kept as `state`."""
+
+    def __init__(self, s, extra=()):
+        keys = SCALAR_FIELDS + PAIR_FIELDS + ELEMENT_FIELDS
+        # widened once after the join: the same float64 values as each
+        # field widened alone
+        flat = torch.cat([s[k].reshape(-1) for k in keys]
+                         + [e.reshape(1) for e in extra]).to(torch.float64)
+        self.state, self.event = s, None
+        if flat.is_cuda:
+            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            flat = host.copy_(flat, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        self.flat = flat
+
+    def result(self) -> dict:
+        if self.event is not None:
+            self.event.synchronize()
+        flat = self.flat.cpu().numpy()
+        s = self.state
+        out, at = {"iteration": int(s["iteration"])}, 0
+        for k in SCALAR_FIELDS + PAIR_FIELDS + ELEMENT_FIELDS:
+            n = s[k].numel()
+            out[k] = (float(flat[at]) if k in SCALAR_FIELDS
+                      else flat[at:at + n])
+            at += n
+        out["extra"] = [float(v) for v in flat[at:]]
+        return out
+
+
 def host_values(s, extra=()) -> dict:
     """Every field of a state but `conserved` as host numbers, and the 0-d
     tensors `extra` as the floats of out["extra"], read from the device in
-    one copy."""
-    keys = SCALAR_FIELDS + PAIR_FIELDS + ELEMENT_FIELDS
-    flat = torch.cat([s[k].reshape(-1).to(torch.float64) for k in keys]
-                     + [e.reshape(1).to(torch.float64) for e in extra])
-    flat = flat.cpu().numpy()
-    out, at = {"iteration": int(s["iteration"])}, 0
-    for k in keys:
-        n = s[k].numel()
-        out[k] = float(flat[at]) if k in SCALAR_FIELDS else flat[at:at + n]
-        at += n
-    out["extra"] = [float(v) for v in flat[at:]]
-    return out
+    one copy. The state's `iteration` is a host int."""
+    return HostValues(s, extra).result()
 
 
 def arrays_to_solution(s, sol_cls, h=None):

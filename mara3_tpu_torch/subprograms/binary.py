@@ -689,18 +689,30 @@ def disk_angular_momentum(solution: Solution, sd: SolverData) -> float:
     return float(_disk_angular_momentum(solution.conserved, sd))
 
 
+def row_values(s, sd: SolverData):
+    """The device's part of the time-series row of the fast step's state
+    (schemes/binary_step.py, a dict of device tensors): the disk's two sums
+    and the state's scalars, enqueued for one copy to the host
+    (binary_step.HostValues). time_series_sample reads it."""
+    from mara3_tpu_torch.schemes import binary_step
+    u = s["conserved"]
+    return binary_step.HostValues(s, extra=(
+        _disk_mass(u, sd), _disk_angular_momentum(u, sd)))
+
+
 def time_series_sample(solution, sd: SolverData):
-    """One TIME_SERIES_DTYPE row of a Solution, or of the fast step's state
-    (schemes/binary_step.py, a dict of device tensors). The disk's two sums
+    """One TIME_SERIES_DTYPE row of a Solution, of the fast step's state,
+    or of such a state's row_values enqueued earlier. The disk's two sums
     are formed on the device and read in one copy: with the fast state's
     scalars, or with each other."""
+    from mara3_tpu_torch.schemes import binary_step
     if isinstance(solution, Mapping):
-        from mara3_tpu_torch.schemes import binary_step
-        u = solution["conserved"]
-        h = binary_step.host_values(solution, extra=(
-            _disk_mass(u, sd), _disk_angular_momentum(u, sd)))
+        solution = row_values(solution, sd)
+    if isinstance(solution, binary_step.HostValues):
+        h = solution.result()
         mass, angmom = h["extra"]
-        solution = binary_step.arrays_to_solution(solution, Solution, h)
+        solution = binary_step.arrays_to_solution(solution.state, Solution,
+                                                  h)
     else:
         u = solution.conserved
         mass, angmom = torch.stack([_disk_mass(u, sd),
@@ -1027,8 +1039,19 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
     retry the faulted one in safe mode. Checkpoints and diagnostics run at
     the first chunk boundary after they come due. With regrid=1 a chunk
     also stops at the next regrid, and a regrid that changes the tree
-    rebuilds the scan (B3's tables) on the new solver data. Under a
-    profiler the loop records the spans and counters of app/tracing.py."""
+    rebuilds the scan (B3's tables) on the new solver data.
+
+    One chunk in flight: once a chunk's rows are read, tested for a fault,
+    marked and the time anchored, the next chunk is planned and launched
+    before the host ends this one. A row due on its last step has its
+    device part enqueued (row_values) before that launch and is read after
+    it, with the progress line. The loop drains instead, ending the chunk
+    before the next launch, where the state must reach the host first: a
+    fault, a due inside the chunk (its replay), a diagnostics or checkpoint
+    due, a regrid, tfinal. The chunks, and so the bits, are the same
+    either way. Under a profiler the loop records the spans and counters
+    of app/tracing.py: each launch counts `chunks_in_flight` or follows a
+    chunk that counted `drains`."""
     import time as _time
 
     from mara3_tpu_torch.schemes import binary_step
@@ -1079,6 +1102,34 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
              for k, v in info.items()})
         return s2, np.concatenate([good, retried[None]], axis=0)
 
+    def end_drained(s_prev, s, rows, due_steps, due, schedule, ts):
+        """A chunk's outputs before the next launch: the row of each due
+        step, then the tasks `due`. Returns (ts, schedule)."""
+        # sample the whole state at each due step (the reference records
+        # the current solution, subprog_binary.cpp:358-378): the last
+        # step's state is s; earlier dues replay from the chunk head
+        s_cursor, done = s_prev, 0
+        for i in due_steps:
+            rec.count("outputs.record_time_series")
+            with rec.span("mara3.output", task="record_time_series"):
+                if i == len(rows) - 1:
+                    s_due = s
+                else:
+                    with rec.span("mara3.replay"):
+                        s_cursor, _ = replay(s_cursor, i + 1 - done)
+                    done = i + 1
+                    s_due = s_cursor
+                with rec.span("mara3.sample"):
+                    ts = ts + (time_series_sample(s_due, sd),)
+        if due:
+            for task in due:
+                rec.count(f"outputs.{task}")
+            with rec.span("mara3.output", task="+".join(due)):
+                st = tasks(State(binary_step.arrays_to_solution(
+                    s, Solution), schedule, ts, cfg), sd)
+            return st.time_series, st.schedule
+        return ts, schedule
+
     t_now = float(state.solution.time)
     t_f64 = t_now                          # float64 time anchor
     t_start = t_now                        # the device's time at chunk
@@ -1086,6 +1137,8 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
     iteration = int(state.solution.iteration)
     next_regrid = t_now + rgi_t
     dts = None                             # recent steps' dt, for the plan
+    held = None                            # the chunk in flight's row
+    #                                        (row_values or None) and line
     while t_now < tfinal_t:
         with rec.span("mara3.chunk", iteration=iteration):
             if regrid_on and t_now >= next_regrid:
@@ -1115,8 +1168,23 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
 
             t0 = _time.perf_counter()
             s_prev = s
+            if held is not None:
+                rec.count("chunks_in_flight")
             with rec.span("mara3.launch"):
                 s, rows = scan_steps(s, n)
+            if held is not None:
+                # the chunk before's row and line, this chunk on the card
+                pending, line = held
+                held = None
+                with rec.span("mara3.post"):
+                    if pending is not None:
+                        rec.count("outputs.record_time_series")
+                        with rec.span("mara3.output",
+                                      task="record_time_series"), \
+                                rec.span("mara3.sample"):
+                            ts = ts + (time_series_sample(pending, sd),)
+                    with rec.span("mara3.print"):
+                        print(line)
             with rec.span("mara3.wait"):
                 rows = rows.cpu().numpy()      # the chunk's one device read
             ms = (_time.perf_counter() - t0) * 1e3
@@ -1124,7 +1192,8 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
             # the host's work on the read rows, in one span so that no
             # idle gap of the device falls between spans
             with rec.span("mara3.post"):
-                if rows[:, IX["invalid"]].any():
+                faulted = rows[:, IX["invalid"]].any()
+                if faulted:
                     with rec.span("mara3.repair"):
                         s, rows = repair(s_prev, rows)
 
@@ -1154,42 +1223,29 @@ def _main_fast(cfg, sd: SolverData, state: State, tasks) -> State:
                                 "record_time_series")
                 if to_due and due_steps[:1] == [len(rows) - 1]:
                     rec.count("planned_due_hits")
-                # sample the whole state at each due step (the reference
-                # records the current solution, subprog_binary.cpp:358-378):
-                # the last step's state is s; earlier dues replay from the
-                # chunk head
-                s_cursor, done = s_prev, 0
-                for i in due_steps:
-                    rec.count("outputs.record_time_series")
-                    with rec.span("mara3.output",
-                                  task="record_time_series"):
-                        if i == len(rows) - 1:
-                            s_due = s
-                        else:
-                            with rec.span("mara3.replay"):
-                                s_cursor, _ = replay(s_cursor, i + 1 - done)
-                            done = i + 1
-                            s_due = s_cursor
-                        with rec.span("mara3.sample"):
-                            ts = ts + (time_series_sample(s_due, sd),)
-
+                t_now = float(rows[-1, IX["time"]])
+                iteration = int(rows[-1, IX["iteration"]])
+                line = (f"[{iteration:04d}] "
+                        f"orbits={t_now / (2 * math.pi):3.7f} "
+                        f"kzps={n * num_zones / max(ms, 1e-12):3.2f}")
                 due = [task for task in ("write_diagnostics",
                                          "write_checkpoint")
                        if schedule.is_due(task)]
-                if due:
-                    for task in due:
-                        rec.count(f"outputs.{task}")
-                    with rec.span("mara3.output", task="+".join(due)):
-                        st = tasks(State(binary_step.arrays_to_solution(
-                            s, Solution), schedule, ts, cfg), sd)
-                    schedule, ts = st.schedule, st.time_series
-
-                t_now = float(rows[-1, IX["time"]])
-                iteration = int(rows[-1, IX["iteration"]])
-                with rec.span("mara3.print"):
-                    print(f"[{iteration:04d}] "
-                          f"orbits={t_now / (2 * math.pi):3.7f} "
-                          f"kzps={n * num_zones / max(ms, 1e-12):3.2f}")
+                if (faulted or due or due_steps not in ([], [len(rows) - 1])
+                        or t_now >= tfinal_t
+                        or (regrid_on and t_now >= next_regrid)):
+                    rec.count("drains")
+                    ts, schedule = end_drained(s_prev, s, rows, due_steps,
+                                               due, schedule, ts)
+                    with rec.span("mara3.print"):
+                        print(line)
+                else:
+                    # the next chunk goes to the card before this one ends
+                    pending = None
+                    if due_steps:
+                        with rec.span("mara3.sample"):
+                            pending = row_values(s, sd)
+                    held = pending, line
             rec.count("steps", len(rows))
             rec.annotate(steps=len(rows))
 
